@@ -42,6 +42,8 @@ MAIN_CELLS = (
     ("feedback", "dts", 256, 65536),
 )
 SEEDS = (0, 1000, 2000)
+#: warm timed runs of each main-path cell (median and spread reported)
+WALL_REPEATS = 3
 
 
 def _cuda_ms(fn, n_iter: int, repeats: int = 7) -> float:
@@ -153,8 +155,8 @@ def _specs(pattern: str, arch: str, n: int, msgs: int):
 
 def drive_main_path(dev) -> tuple[list, int]:
     """Phase 4: every main-path cell through ``run_many`` on the card,
-    warm (after one untimed run), with the pump launches of the timed
-    run.  Returns the per-cell rows and the total launches."""
+    warm (after one untimed run), timed ``WALL_REPEATS`` times, each
+    run with the pump launches counted from 0.  Returns the per-cell rows and the total launches."""
     import torch
     from repro_torch import run_many, summarize
     from repro_torch.core import torch_device_loop as dl
@@ -171,17 +173,21 @@ def drive_main_path(dev) -> tuple[list, int]:
         n_steps = ws.meta["nSteps"]
         run_many(specs, device=dev)
         torch.cuda.synchronize()
-        pump_assign.launches = 0
-        t0 = time.perf_counter()
-        res = run_many(specs, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = pump_assign.launches
-        total += launches
         need = (2 if pattern == "feedback" else 1) * n_steps
-        if launches < need:
-            raise AssertionError(f"{pattern}/{arch}: {launches} pump launches "
-                                 f"< {need}: the main path missed the kernel")
+        walls, counts = [], []
+        for _ in range(WALL_REPEATS):
+            pump_assign.launches = 0
+            t0 = time.perf_counter()
+            res = run_many(specs, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(pump_assign.launches)
+            if counts[-1] < need:
+                raise AssertionError(
+                    f"{pattern}/{arch}: {counts[-1]} pump launches < {need}: "
+                    f"the main path missed the kernel")
+        launches = counts[0]
+        total += launches
         for r in res:
             if r.n_consumed != msgs:
                 raise AssertionError(f"{pattern}/{arch} seed "
@@ -190,8 +196,8 @@ def drive_main_path(dev) -> tuple[list, int]:
         sm = [summarize(r) for r in res]
         rows.append(dict(
             cell=f"{pattern}/{arch}/c{n}", msgs=msgs, lanes=len(res),
-            steps=n_steps, wall_s=wall, host_build_s=host_s,
-            pump_launches=launches,
+            steps=n_steps, wall_s=statistics.median(walls),
+            wall_s_runs=walls, host_build_s=host_s, pump_launches=launches,
             throughput_msgs_s=[s.throughput_msgs_s for s in sm],
             median_rtt_s=([s.median_rtt_s for s in sm]
                           if pattern == "feedback" else None)))
@@ -261,6 +267,7 @@ def profile_cell(dev) -> dict:
     busy = sum(r[0] for r in rows) / 1e6
     return dict(cell="work_sharing/dts/c1024", wall_s=wall,
                 device_busy_s=busy if rows else "not measured",
+                idle_share=1.0 - busy / wall if rows else "not measured",
                 device_events=sum(r[1] for r in rows),
                 top=[dict(us=r[0], count=r[1], name=r[2][:80])
                      for r in rows[:8]])
@@ -282,7 +289,8 @@ def main() -> int:
     print(f"device: {kind}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    _build.build(list(KERNELS))
+    for name in KERNELS:
+        _build.build(name)
     print(f"build: {sorted(KERNELS)} in {time.perf_counter() - t0:.2f} s")
     kern = check_kernels(dev)
     print("kernel check:", json.dumps(kern))

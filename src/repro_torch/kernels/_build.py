@@ -44,36 +44,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(names: list[str]) -> dict[str, Path]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    process per source, all started together.  Returns the libraries."""
+def build(name: str) -> Path:
+    """Compile kernel ``name`` unless its library exists; returns it."""
+    lib = library_path(name)
+    if lib.exists():
+        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {n: library_path(n) for n in names}
-    procs = []
-    for n, lib in libs.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs.append((n, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    failed = []
-    for n, lib, tmp, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exit {proc.returncode}\n"
-                          f"{out.decode(errors='replace')}")
-            continue
-        os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return libs
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
+                           f"{proc.returncode}\n"
+                           f"{proc.stdout.decode(errors='replace')}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
     return lib
