@@ -6,15 +6,29 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
     python3 chip_smoke.py
 
 Phases, one line each: the card; the kernel build from the sources in
-the checkout; every kernel against its plain PyTorch version on the
-card (bitwise), with its time beside its bound; the main path —
-``run_many`` at deployment scale (1024x1024 work-sharing on dts,
-prs-haproxy and mss, 256x256 feedback on dts, three seed-lanes each) —
-with the kernel launch counts it made; the same Fig 4 cell run on the
-GPU and on the CPU, compared; and a ``torch.profiler`` breakdown of one
-main-path cell (device busy time, top kernels).  The line before the last holds the
-kernels' numbers as JSON, and the last line the device.  Any failure
-exits nonzero; without CUDA it exits 1 before printing a result.
+the checkout (one ``nvcc`` per source, all started together); every
+kernel against its plain PyTorch version on the card, with its time
+beside its bound (the pump bitwise; flash attention at the tolerances
+of ``tests/test_kernels.py`` on granite-8b's and gemma2-9b's shapes and
+the edge cases, beside ``scaled_dot_product_attention``).  Then the
+two paths, each with its kernel launches counted from 0:
+
+* the wave path — ``run_many`` at deployment scale (1024x1024
+  work-sharing on dts, prs-haproxy and mss, 256x256 feedback on dts,
+  three seed-lanes each); the same Fig 4 cell run on the GPU and on the
+  CPU, compared; and a ``torch.profiler`` breakdown of one cell;
+* the serving path — granite-8b at full width and depth (36 layers,
+  random bf16 weights from a seed): ``build_prefill_step`` with the
+  flash-attention kernel on 4 requests x 4096 prompt tokens (one kernel
+  launch per layer), its logits held to the same prefill with each
+  plain attention (reference, blocked), and the kernel checked on every
+  layer's own q, k, v; a ``torch.profiler`` breakdown of one prefill;
+  and ``generate`` (4 requests, 16-token prompts, 16 new tokens,
+  greedy), with its own profile.
+
+The line before the last holds the kernels' numbers as JSON, and the
+last line the device.  Any failure exits nonzero; without CUDA it exits
+1 before printing a result.
 """
 
 from __future__ import annotations
@@ -31,6 +45,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM peak memory rate (NVIDIA data sheet), bytes/s
 HBM_BPS = 3.35e12
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), FLOP/s
+BF16_FLOPS = 989e12
 #: cross-device tolerance: CUDA's cumsum associates differently from the
 #: CPU's sequential sum, so clocks may differ in the last bits
 XDEV_RTOL = 1e-9
@@ -44,6 +60,32 @@ MAIN_CELLS = (
 SEEDS = (0, 1000, 2000)
 #: warm timed runs of each main-path cell (median and spread reported)
 WALL_REPEATS = 3
+
+#: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
+#: causal, window, logit cap).  The first is the serving path's shape
+#: (granite-8b prefill, 4 x 4096 tokens) and is the one timed.
+ATTN_CASES = (
+    ("granite-8b prefill", "bfloat16", 4, 4096, 4096, 32, 8, 128, True, 0, 0.0),
+    ("granite-8b B=1", "bfloat16", 1, 4096, 4096, 32, 8, 128, True, 0, 0.0),
+    ("gemma2-9b local", "bfloat16", 1, 8192, 8192, 16, 8, 256, True, 4096, 50.0),
+    ("f32 hd=64", "float32", 2, 1024, 1024, 8, 2, 64, True, 0, 0.0),
+    ("non-causal", "bfloat16", 2, 1024, 1024, 8, 8, 128, False, 0, 0.0),
+    ("MQA", "bfloat16", 2, 1024, 1024, 16, 1, 128, True, 0, 0.0),
+    ("ragged S", "bfloat16", 1, 1000, 1000, 8, 2, 128, True, 0, 0.0),
+    ("ragged f32 window softcap", "float32", 1, 777, 777, 4, 2, 64, True, 100, 30.0),
+)
+#: serving path: granite-8b, requests x prompt tokens (cut from
+#: prefill_32k's 32 x 32768, whose SwiGLU intermediate does not fit)
+SERVE_ARCH = "granite-8b"
+PREFILL_BATCH, PREFILL_LEN = 4, 4096
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 16, 16
+#: prefill logits against the same prefill with each plain attention
+#: (reference, blocked): max |diff| over max |logit|.  36 layers of
+#: random weights amplify every bf16 rounding: on the H100 the two plain
+#: attentions themselves differ by 4.9e-2 of max |logit|, and any two
+#: of the three by 3.9e-2 to 5.3e-2 (argmax equal).  The kernel's own
+#: accuracy is held per layer instead (``check_layers``, bf16 2e-2).
+PREFILL_RTOL = 1e-1
 
 
 def _cuda_ms(fn, n_iter: int, repeats: int = 7) -> float:
@@ -100,7 +142,7 @@ def _pump_inputs(rng, R: int, P: int, L: int, Np: int, case: str, dev):
                  for a in (ring, t, gid, idx, valid))
 
 
-def check_kernels(dev) -> dict:
+def check_pump(dev) -> dict:
     """Phase 3: the pump kernel against ``pump_assign_ref`` on the card,
     bitwise, at the main-path shapes and the edge cases; its time, the
     plain version's time and the bound at the main-path shape."""
@@ -143,6 +185,277 @@ def check_kernels(dev) -> dict:
                 bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes",
                 library_ms=None, cases=len(cases), call_ms=call_ms,
                 plain_call_ms=plain_call_ms)
+
+
+def _attn_tol(dtype: str, window: int, cap: float) -> float:
+    """``tests/test_kernels.py``'s tolerances (rtol = atol)."""
+    if dtype == "bfloat16":
+        return 2e-2
+    return 3e-5 if (window or cap) else 2e-5
+
+
+def _visible_pairs(pos, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave visible: the work this data
+    needs, counted row block by row block."""
+    import torch
+    n = 0
+    for i in range(0, pos.numel(), 1024):
+        d = pos[i:i + 1024, None].long() - pos[None, :].long()
+        ok = torch.ones_like(d, dtype=torch.bool)
+        if causal:
+            ok &= d >= 0
+        if window > 0:
+            ok &= d < window
+        n += int(ok.sum().item())
+    return n
+
+
+def check_flash(dev) -> dict:
+    """Phase 3b: the flash-attention kernel against
+    ``flash_attention_ref`` on the card at every ``ATTN_CASES`` shape;
+    at the serving path's shape its time, the plain version's, one
+    ``scaled_dot_product_attention`` call's, and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref)
+    g = torch.Generator(dev).manual_seed(0)
+    rows, timed = [], None
+    for case, dtype, B, S, T, H, KV, hd, causal, window, cap in ATTN_CASES:
+        td = getattr(torch, dtype)
+        q = torch.randn(B, S, H, hd, generator=g, device=dev).to(td)
+        k = torch.randn(B, T, KV, hd, generator=g, device=dev).to(td)
+        v = torch.randn(B, T, KV, hd, generator=g, device=dev).to(td)
+        pos = torch.arange(S, device=dev, dtype=torch.int32)
+        kw = dict(causal=causal, window=window, logit_cap=cap)
+        got = flash_attention(q, k, v, pos, pos, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, pos, pos, **kw)
+        tol = _attn_tol(dtype, window, cap)
+        diff = (got.float() - want.float()).abs()
+        if not (torch.isfinite(got).all() and bool(
+                (diff <= tol + tol * want.float().abs()).all())):
+            raise AssertionError(f"flash_attention differs from its plain "
+                                 f"version on {case}: max abs err "
+                                 f"{diff.max().item()} (tol {tol})")
+        rows.append(dict(case=case, max_abs_err=diff.max().item(), tol=tol))
+        del want, diff
+        if timed is None:
+            timed = (q, k, v, pos, kw, rows[-1]["max_abs_err"])
+        else:
+            del q, k, v
+        torch.cuda.empty_cache()
+    q, k, v, pos, kw, err = timed
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    ms = _cuda_ms(lambda: flash_attention(q, k, v, pos, pos, **kw), 3, 5)
+    plain_ms = _cuda_ms(lambda: flash_attention_ref(q, k, v, pos, pos, **kw),
+                        2, 3)
+    # the library's fused attention on the same data, (B, H, S, hd) layout
+    # made once outside the timing
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    lib_err = (sdpa().transpose(1, 2).float()
+               - flash_attention(q, k, v, pos, pos, **kw).float()).abs().max()
+    library_ms = _cuda_ms(sdpa, 5, 5)
+    pairs = _visible_pairs(pos, kw["causal"], kw["window"])
+    flops = 4 * B * H * hd * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + 2 * pos.numel() * 4
+    ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:79",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=library_ms, cases=rows,
+                shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=str(q.dtype)),
+                flops=flops, bytes=nbytes, tflops=flops / ms / 1e9,
+                sdpa_max_abs_diff=lib_err.item())
+
+
+def drive_prefill(dev):
+    """Serving path, prefill: granite-8b at full width and depth with
+    random weights from a seed, ``build_prefill_step(last_only=True)``
+    on ``PREFILL_BATCH`` x ``PREFILL_LEN`` tokens with the flash kernel,
+    warm, timed ``WALL_REPEATS`` times with the kernel's launches
+    counted from 0 for each; then the same prefill with the reference
+    attention, compared.  Returns the row, the model and the tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.sharding import ModelContext
+    from repro_torch.models.zoo import build_model
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init_params(
+        torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev, dtype=torch.int32)
+    step = build_prefill_step(model, ModelContext(attention_impl="pallas"),
+                              last_only=True)
+    step(tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, counts = [], []
+    for _ in range(WALL_REPEATS):
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        logits = step(tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(flash_attention.launches)
+        if counts[-1] != cfg.n_layers:
+            raise AssertionError(f"prefill: {counts[-1]} flash-attention "
+                                 f"launches, want one per layer "
+                                 f"({cfg.n_layers})")
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (PREFILL_BATCH, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    other = {impl: build_prefill_step(model, ModelContext(attention_impl=impl),
+                                      last_only=True)(tokens).float()
+             for impl in ("reference", "blocked")}
+    ref, blk = other["reference"], other["blocked"]
+    scale = ref.abs().max().item()
+    wall = statistics.median(walls)
+    row = dict(arch=SERVE_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+               params=n_params, batch=PREFILL_BATCH, prompt=PREFILL_LEN,
+               init_s=init_s, wall_s=wall, wall_s_runs=walls,
+               tokens_s=PREFILL_BATCH * PREFILL_LEN / wall,
+               flash_launches=counts, peak_mem_gb=peak / 1e9,
+               logits_max_abs=scale,
+               dev_vs_reference=(logits.float() - ref).abs().max().item(),
+               dev_vs_blocked=(logits.float() - blk).abs().max().item(),
+               dev_blocked_vs_reference=(blk - ref).abs().max().item(),
+               rtol=PREFILL_RTOL,
+               argmax_agree_reference=float(
+                   (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()))
+    return row, model, tokens
+
+
+def check_prefill(row: dict) -> None:
+    """The kernel's prefill logits against both plain attentions' at
+    ``PREFILL_RTOL`` of max |logit|."""
+    scale = row["logits_max_abs"]
+    for impl in ("reference", "blocked"):
+        dev = row[f"dev_vs_{impl}"]
+        if not dev <= PREFILL_RTOL * scale:
+            raise AssertionError(f"prefill logits, flash vs {impl} "
+                                 f"attention: max |diff| {dev} > "
+                                 f"{PREFILL_RTOL} x max |logit| {scale}")
+
+
+def check_layers(model, tokens) -> dict:
+    """At every layer of one prefill (the reference attention carrying
+    the residual stream), the kernel on that layer's own q, k, v against
+    its plain version, at the bf16 tolerance of ``tests/test_kernels.py``.
+    These launches are checks, not the main path's."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref)
+    from repro_torch.models import layers as L
+    from repro_torch.models.sharding import ModelContext
+    ctx = ModelContext(attention_impl="reference")
+    pos = torch.arange(tokens.shape[1], device=tokens.device,
+                       dtype=torch.int32)
+    cap = model.cfg.attn_logit_softcap
+    worst, tol = 0.0, _attn_tol("bfloat16", 0, 0.0)
+    with torch.no_grad():
+        x = L.embed(tokens, model.embed)
+        for i, (blk, window) in enumerate(zip(model.blocks, model.windows)):
+            q, k, v = blk._attn_proj(L.rmsnorm(x, blk.attn_norm), pos)
+            kw = dict(causal=True, window=window, logit_cap=cap)
+            got = flash_attention(q, k, v, pos, pos, **kw).float()
+            want = flash_attention_ref(q, k, v, pos, pos, **kw).float()
+            diff = (got - want).abs()
+            if not bool((diff <= tol + tol * want.abs()).all()):
+                raise AssertionError(f"layer {i}: flash_attention differs "
+                                     f"from its plain version on the "
+                                     f"model's q, k, v: max abs err "
+                                     f"{diff.max().item()} (tol {tol})")
+            worst = max(worst, diff.max().item())
+            del got, want, diff
+            x = blk(x, window, pos, ctx)
+    return dict(arch=model.cfg.name, layers=len(model.blocks),
+                max_abs_err=worst, tol=tol)
+
+
+def profile_prefill(model, tokens) -> dict:
+    """Device busy time and the top kernels of one warm prefill, from
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.sharding import ModelContext
+    step = build_prefill_step(model, ModelContext(attention_impl="pallas"),
+                              last_only=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _device_rows(prof, wall, "prefill " + SERVE_ARCH)
+
+
+def profile_decode(model) -> dict:
+    """Device busy time and the top kernels of ``generate`` (warm), from
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import generate
+    prompts = torch.zeros((DECODE_BATCH, DECODE_PROMPT), dtype=torch.int32,
+                          device=model.device)
+    generate(model, prompts, DECODE_NEW)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(model, prompts, DECODE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _device_rows(prof, wall, "decode " + SERVE_ARCH)
+
+
+def drive_decode(model) -> dict:
+    """Serving path, decode: ``generate`` on the prefill's model, greedy,
+    warm then timed; no flash-attention launch (the reference's decode
+    runs no kernel either)."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.serve import generate
+    V = model.cfg.vocab_size
+    prompts = torch.randint(0, V, (DECODE_BATCH, DECODE_PROMPT),
+                            generator=torch.Generator(model.device).manual_seed(2),
+                            device=model.device, dtype=torch.int32)
+    generate(model, prompts, DECODE_NEW)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    toks = generate(model, prompts, DECODE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if toks.shape != (DECODE_BATCH, DECODE_PROMPT + DECODE_NEW):
+        raise AssertionError(f"generate: shape {tuple(toks.shape)}")
+    if not (bool(torch.equal(toks[:, :DECODE_PROMPT], prompts))
+            and int(toks.min()) >= 0 and int(toks.max()) < V):
+        raise AssertionError("generate: prompt not kept or ids outside the "
+                             "vocabulary")
+    if flash_attention.launches:
+        raise AssertionError("generate launched the prefill kernel")
+    steps = DECODE_PROMPT + DECODE_NEW - 1
+    return dict(arch=SERVE_ARCH, batch=DECODE_BATCH, prompt=DECODE_PROMPT,
+                new=DECODE_NEW, wall_s=wall, steps=steps,
+                step_ms=wall / steps * 1e3,
+                new_tokens_s=DECODE_BATCH * DECODE_NEW / wall,
+                sample=toks[0, DECODE_PROMPT:].tolist())
 
 
 def _specs(pattern: str, arch: str, n: int, msgs: int):
@@ -254,6 +567,13 @@ def profile_cell(dev) -> dict:
         run_many(specs, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return _device_rows(prof, wall, "work_sharing/dts/c1024")
+
+
+def _device_rows(prof, wall: float, cell: str) -> dict:
+    """Device busy time, idle share of ``wall`` and the top kernels of a
+    ``torch.profiler`` run."""
+    import torch
     rows = []
     for ev in prof.key_averages():
         # device-side events only (kernels, copies): the CPU-side op
@@ -265,7 +585,7 @@ def profile_cell(dev) -> dict:
             rows.append((dt, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    return dict(cell="work_sharing/dts/c1024", wall_s=wall,
+    return dict(cell=cell, wall_s=wall,
                 device_busy_s=busy if rows else "not measured",
                 idle_share=1.0 - busy / wall if rows else "not measured",
                 device_events=sum(r[1] for r in rows),
@@ -289,20 +609,34 @@ def main() -> int:
     print(f"device: {kind}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    for name in KERNELS:
-        _build.build(name)
+    _build.build_all(KERNELS)
     print(f"build: {sorted(KERNELS)} in {time.perf_counter() - t0:.2f} s")
-    kern = check_kernels(dev)
-    print("kernel check:", json.dumps(kern))
+    # float32 products in full float32 (the default, stated): the plain
+    # versions are the yardsticks of the f32 checks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pump = check_pump(dev)
+    print("kernel check:", json.dumps(pump))
+    flash = check_flash(dev)
+    print("kernel check:", json.dumps(flash))
     rows, launches = drive_main_path(dev)
     for r in rows:
         print("main path:", json.dumps(r))
-    kern["launches"] = launches
+    pump["launches"] = launches
     print("cross-check:", json.dumps(cross_check(dev)))
     print("profile:", json.dumps(profile_cell(dev)))
-    for k in ("cases", "call_ms", "plain_call_ms"):
-        kern.pop(k)
-    print(json.dumps({"kernels": [kern]}))
+    prefill, model, tokens = drive_prefill(dev)
+    print("serve prefill:", json.dumps(prefill))
+    print("serve layers:", json.dumps(check_layers(model, tokens)))
+    flash["launches"] = prefill["flash_launches"][0]
+    print("profile:", json.dumps(profile_prefill(model, tokens)))
+    print("serve decode:", json.dumps(drive_decode(model)))
+    print("profile:", json.dumps(profile_decode(model)))
+    check_prefill(prefill)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
+                                  for kern in (pump, flash)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

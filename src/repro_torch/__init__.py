@@ -1,9 +1,15 @@
-"""PyTorch/CUDA port of StreamSim's wave program.
+"""PyTorch/CUDA port of the reference package ``repro``.
 
-``run_many(specs, device="cuda")`` runs work-sharing and feedback
-experiments as whole-run programs on the GPU (pass ``device="cpu"`` to
-run them on the CPU), with the pump window assignment as a hand-written
-CUDA kernel.  The package imports ``torch`` and NumPy only.
+* StreamSim's wave program: ``run_many(specs, device="cuda")`` runs
+  work-sharing and feedback experiments as whole-run programs on the GPU
+  (pass ``device="cpu"`` to run them on the CPU), with the pump window
+  assignment as a hand-written CUDA kernel.
+* Dense-transformer serving: ``models.zoo.build_model(cfg,
+  device="cuda")``, ``launch.steps.build_prefill_step`` and
+  ``launch.serve.generate``, with flash attention as a hand-written CUDA
+  kernel (``ModelContext(attention_impl="pallas")``).
+
+The package imports ``torch`` and NumPy only.
 """
 
 from repro_torch.core.metrics import Summary, summarize, throughput_msgs_per_s

@@ -19,6 +19,7 @@ from repro_torch.core.cell import WAVE_PATTERNS, WaveCell, _stack_key
 from repro_torch.core.ds2hpc import ClusterInventory
 from repro_torch.core.simulator import (
     ExperimentSpec, InfeasibleConfiguration, RunResult)
+from repro_torch.device import resolve_device
 
 #: stacked lanes per run are chunked to bound the array working set
 STACK_MAX_LANES = 16
@@ -32,7 +33,7 @@ def run_many(specs: Sequence[ExperimentSpec], device: "torch.device | str" = "cu
     back as ``feasible=False`` results.  Raises ``ValueError`` for a
     cell outside the wave regime and ``RuntimeError`` when ``device`` is
     CUDA and no GPU is available."""
-    device = dl._resolve_device(device)
+    device = resolve_device(device)
     specs = list(specs)
     results: list = [None] * len(specs)
     groups: dict = {}

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cell import WAVE_PATTERNS, WaveCell, _align_paths
+from repro_torch.device import resolve_device
 from repro_torch.kernels.pump_assign import pump_assign
 
 _INF = np.inf
@@ -955,17 +956,8 @@ def run_wave_trace(ws: WaveStatic, jitter: dict,
     leading axis ``nSteps`` — the step-for-step comparison surface
     against the reference's NumPy oracle."""
     ts = static_to_torch(ws.meta, ws.xs, ws.inv, jitter,
-                         _resolve_device(device))
+                         resolve_device(device))
     return {k: v[:, 0].cpu().numpy() for k, v in run_program(ts).items()}
-
-
-def _resolve_device(device: "torch.device | str") -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: the wave program runs on the GPU by "
-            "default; pass device='cpu' to run it on the CPU")
-    return device
 
 
 # ---------------------------------------------------------------------------
@@ -1023,7 +1015,7 @@ def run_wave_cells(sims: list, device: "torch.device | str" = "cuda") -> list:
     :meth:`WaveStatic.signature`) on the cell axis of one program, the
     cell axis padded to a power of two by replicating cell 0 (the pads'
     results are dropped).  Returns, per sim, its per-lane RunResults."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     built = [(sim, build_static(sim)) for sim in sims]
     out: list = [None] * len(sims)
     groups: dict = {}

@@ -1,0 +1,207 @@
+"""Shared neural layers of the port: RMSNorm, RoPE, GQA attention (three
+implementations), SwiGLU MLP, embeddings, loss.  The counterpart of the
+reference's ``repro.models.layers``, function for function.
+
+Attention implementations (``ModelContext.attention_impl``):
+
+* ``reference`` — materializes the full (S, T) score matrix; the oracle
+  and the small-sequence default.
+* ``blocked``   — online softmax over KV blocks in plain PyTorch; O(S*block)
+  memory.
+* ``pallas``    — the hand-written flash-attention kernel
+  (:func:`repro_torch.kernels.ops.flash_attention`; on CPU tensors its
+  plain version).  The name is the reference's.
+
+K/V are expanded to the full head count for train/prefill attention;
+decode attends with a grouped einsum against the KV cache.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import (
+    NEG_INF, _expand_kv, _mask_bias, flash_attention_ref, softcap)
+from repro_torch.models.sharding import ModelContext
+
+__all__ = ["NEG_INF", "rmsnorm", "softcap", "rope", "attention_reference",
+           "attention_blocked", "attention", "decode_attention", "swiglu",
+           "embed", "unembed", "cross_entropy"]
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` with float32 statistics,
+    cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + w.float())
+    return out.to(dt)
+
+
+# --------------------------------------------------------------------------
+# rotary position embeddings
+# --------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (..., S, n, hd); positions: broadcastable to (..., S).  Half-split
+    rotation with float32 angles, cast back to x's dtype."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., None].float() * freqs          # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+
+def attention_reference(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                        logit_cap=0.0, scale=None,
+                        ctx: Optional[ModelContext] = None) -> torch.Tensor:
+    """q: (B,S,H,hd); k,v: (B,T,KV,hd) -> (B,S,H,hd). Full score matrix."""
+    return flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
+                               window=window, logit_cap=logit_cap,
+                               scale=scale)
+
+
+def attention_blocked(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                      logit_cap=0.0, scale=None, block=1024,
+                      ctx: Optional[ModelContext] = None) -> torch.Tensor:
+    """Online softmax over KV blocks (the flash-attention recurrence in
+    plain PyTorch): memory O(S*block) instead of O(S*T), the same math as
+    ``attention_reference``.
+
+    The last block is simply shorter when ``block`` does not divide T.
+    (The reference pads T for its ``lax.scan`` with zero keys at position
+    -1e9, which a causal mask without a window leaves visible, so there
+    its result departs from ``attention_reference``; the port does not
+    pad.)"""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    scale = (hd ** -0.5) if scale is None else scale
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    qf = q.float() * scale
+    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, S, hd), dtype=torch.float32, device=q.device)
+    for j in range(0, T, block):
+        k_j = k[:, j:j + block].float()
+        v_j = v[:, j:j + block].float()
+        s = torch.einsum("bshd,bthd->bhst", qf, k_j)
+        if logit_cap > 0:
+            s = softcap(s, logit_cap)
+        s = s + _mask_bias(q_pos, k_pos[j:j + block], causal, window)[None, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhst,bthd->bhsd", p, v_j)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+              logit_cap=0.0, scale=None,
+              ctx: Optional[ModelContext] = None) -> torch.Tensor:
+    """Dispatch by ctx.attention_impl (auto: blocked beyond threshold)."""
+    impl = ctx.attention_impl if ctx is not None else "auto"
+    if impl == "pallas":
+        return kops.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                                    window=window, logit_cap=logit_cap,
+                                    scale=scale)
+    if impl == "auto":
+        thresh = ctx.blocked_threshold if ctx is not None else 2048
+        impl = "blocked" if q.shape[1] > thresh else "reference"
+    fn = attention_blocked if impl == "blocked" else attention_reference
+    return fn(q, k, v, q_pos, k_pos, causal=causal, window=window,
+              logit_cap=logit_cap, scale=scale, ctx=ctx)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=0, logit_cap=0.0,
+                     scale=None, ctx: Optional[ModelContext] = None
+                     ) -> torch.Tensor:
+    """One-token attention against the KV cache.
+
+    q: (B, H, hd); k_cache/v_cache: (B, T, KV, hd); pos: (B,) index of the
+    current token (already written into the cache).  Grouped einsum, no
+    KV expansion; keys past ``pos`` (and outside the window) are masked.
+    """
+    B, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    T = k_cache.shape[1]
+    scale = (hd ** -0.5) if scale is None else scale
+    qg = q.reshape(B, KV, G, hd).float() * scale
+    s = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.float())
+    if logit_cap > 0:
+        s = softcap(s, logit_cap)
+    t_idx = torch.arange(T, device=q.device)
+    ok = t_idx[None, :] <= pos[:, None]                       # (B, T)
+    if window > 0:
+        ok &= (pos[:, None] - t_idx[None, :]) < window
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkh->bkgh", p, v_cache.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP / embeddings / loss
+# --------------------------------------------------------------------------
+
+
+def swiglu(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
+           ) -> torch.Tensor:
+    """wi: (D, 2F) fused gate+up; wo: (F, D)."""
+    h = x @ wi.to(x.dtype)
+    gate, up = h.chunk(2, dim=-1)
+    return (F.silu(gate) * up) @ wo.to(x.dtype)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(x: torch.Tensor, w: torch.Tensor, final_cap: float = 0.0
+            ) -> torch.Tensor:
+    """x: (..., D) @ w: (D, V) -> logits, optional final softcap (gemma2)
+    in float32."""
+    logits = x @ w.to(x.dtype)
+    if final_cap > 0:
+        logits = softcap(logits.float(), final_cap)
+    return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE. logits (B,S,V), labels (B,S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        total = torch.clamp(mask.sum(), min=1)
+        return (nll * mask).sum() / total
+    return nll.mean()

@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from repro.core import jax_device_loop as jdl
-from repro_torch.kernels import pump_assign as pump_mod
 from repro_torch.kernels.pump_assign import pump_assign, pump_assign_ref
 
 #: (case, R ring rows, P prefetch, L lanes, Np members) — the edge cases
@@ -103,8 +102,8 @@ def test_pump_kernel_matches_plain_version_on_gpu(case, R, P, L, Np):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     args = _torch(*_inputs(case, R, P, L, Np), device="cuda")
-    before = pump_mod.pump_assign.launches
+    before = pump_assign.launches
     got = pump_assign(*args)
     torch.cuda.synchronize()
-    assert pump_mod.pump_assign.launches == before + 1
+    assert pump_assign.launches == before + 1
     assert torch.equal(got, pump_assign_ref(*args))
