@@ -46,35 +46,20 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile kernel ``name`` unless its library exists; returns it."""
-    return build_all([name])[name]
-
-
-def build_all(names) -> dict[str, Path]:
-    """Compile the kernels ``names`` whose libraries do not exist yet,
-    one ``nvcc`` process per source, all started together; returns each
-    kernel's library.  Raises after every process has ended if any
-    build failed."""
-    libs = {name: library_path(name) for name in names}
-    procs = {}
+    lib = library_path(name)
+    if lib.exists():
+        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name, lib in libs.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
-                          f"{out.decode(errors='replace')}")
-        else:
-            os.replace(tmp, libs[name])
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return libs
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
+                           f"{proc.returncode}\n"
+                           f"{proc.stdout.decode(errors='replace')}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,8 +13,6 @@
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
-import importlib
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,10 +22,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as JL
 from repro_torch.kernels import KERNELS, ops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as TL
-
-#: the kernel's module (the package re-exports its wrapper under the same name)
-fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 
