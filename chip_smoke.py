@@ -8,26 +8,41 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
 Phases, one line each: the card; the kernel build from the sources in
 the checkout (one ``nvcc`` per source, all started together); every
 kernel against its plain PyTorch version on the card, with its time
-beside its bound (the pump bitwise; flash attention at the tolerances
-of ``tests/test_kernels.py`` and, row by row, against its plain version
-in float32, on granite-8b's and gemma2-9b's shapes and the edge cases,
-beside ``scaled_dot_product_attention``).  Then the two paths, each
-with its kernel launches counted from 0:
+beside its bound and, where one PyTorch call computes the same function,
+that call's time: the pump bitwise; flash attention at the tolerances of
+``tests/test_kernels.py`` and, row by row, against its plain version in
+float32, on granite-8b's, zamba2-7b's and gemma2-9b's shapes and the edge
+cases; RMSNorm at both models' widths; flash decode on both models' full
+caches, gemma2's window, ragged positions and one long request, with
+the cache past each position overwritten; the SSD state scan at zamba2's
+prefill and a 32768-token request.  Then the paths, each with every
+kernel's launches counted from 0 just before it and read just after:
 
 * the wave path — ``run_many`` at deployment scale (1024x1024
   work-sharing on dts, prs-haproxy and mss, 256x256 feedback on dts,
   three seed-lanes each); the same Fig 4 cell run on the GPU and on the
   CPU, compared; and a ``torch.profiler`` breakdown of one cell;
-* the serving path — granite-8b at full width and depth (36 layers,
-  random bf16 weights from a seed): ``build_prefill_step`` with the
-  flash-attention kernel on 4 requests x 4096 prompt tokens (one kernel
-  launch per layer), its logits held to the same prefill with each
-  plain attention (reference, blocked); the prefill walked layer by
-  layer with each attention, the kernel checked on every layer's own
-  q, k, v and the logits compared by depth; a ``torch.profiler``
-  breakdown of one prefill; ``generate`` (4 requests, 16-token prompts,
-  16 new tokens, greedy), with its own profile; and decode steps
-  against a full cache of 128 x 2048 and 32 x 8192 tokens, profiled.
+* serving granite-8b at full width and depth (36 layers, random bf16
+  weights from a seed), with ``attention_impl="pallas"``: the prefill
+  step on 4 requests x 4096 prompt tokens (flash attention once per
+  layer, RMSNorm for every norm), its logits held to the same prefill
+  with each plain attention (reference, blocked); the prefill walked
+  layer by layer with each attention, the flash kernel checked on every
+  layer's own q, k, v and the logits compared by depth; a profile of
+  one prefill; ``generate`` (4 requests, 16-token prompts, 16 new tokens,
+  greedy) and a profile of a few of its decode steps; decode steps
+  against a full cache of 128 x 2048 and 32 x 8192 tokens with flash
+  decode, each beside one step with the plain grouped einsum, logits
+  compared;
+* serving zamba2-7b at full width and depth (81 Mamba2 layers, the
+  shared attention block 13 times, random bf16 weights from a seed),
+  after granite's memory is freed: the prefill step on 4 x 4096 tokens
+  (flash attention 13 times, the SSD state scan once per Mamba2 layer,
+  RMSNorm for every norm), its logits held to the all-plain path and the
+  blocked one; the SSD kernel held layer by layer to its plain version
+  on the model's own inputs through the first macro-block; a profile of
+  one prefill; ``generate``; decode steps against 32 x 4096 and 8 x 16384
+  cached tokens with flash decode, each beside one plain step.
 
 The line before the last holds the kernels' numbers as JSON, and the
 last line the device.  Any failure exits nonzero; without CUDA it exits
@@ -36,6 +51,8 @@ last line the device.  Any failure exits nonzero; without CUDA it exits
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -51,6 +68,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BPS = 3.35e12
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), FLOP/s
 BF16_FLOPS = 989e12
+#: H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet), FLOP/s
+F32_FLOPS = 67e12
 #: cross-device tolerance: CUDA's cumsum associates differently from the
 #: CPU's sequential sum, so clocks may differ in the last bits
 XDEV_RTOL = 1e-9
@@ -66,40 +85,75 @@ SEEDS = (0, 1000, 2000)
 WALL_REPEATS = 3
 
 #: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
-#: causal, window, logit cap).  The first is the serving path's shape
-#: (granite-8b prefill, 4 x 4096 tokens) and is the one timed.
+#: causal, window, logit cap).  The first is granite-8b's prefill shape
+#: and is the one timed; zamba2-7b's (hd 112) is timed beside it.
 ATTN_CASES = (
     ("granite-8b prefill", "bfloat16", 4, 4096, 4096, 32, 8, 128, True, 0, 0.0),
+    ("zamba2-7b prefill", "bfloat16", 4, 4096, 4096, 32, 32, 112, True, 0, 0.0),
     ("granite-8b B=1", "bfloat16", 1, 4096, 4096, 32, 8, 128, True, 0, 0.0),
     ("gemma2-9b local", "bfloat16", 1, 8192, 8192, 16, 8, 256, True, 4096, 50.0),
     ("f32 hd=64", "float32", 2, 1024, 1024, 8, 2, 64, True, 0, 0.0),
+    ("f32 hd=112 window softcap", "float32", 1, 1000, 1000, 4, 2, 112, True, 300, 30.0),
     ("non-causal", "bfloat16", 2, 1024, 1024, 8, 8, 128, False, 0, 0.0),
     ("MQA", "bfloat16", 2, 1024, 1024, 16, 1, 128, True, 0, 0.0),
     ("ragged S", "bfloat16", 1, 1000, 1000, 8, 2, 128, True, 0, 0.0),
     ("ragged f32 window softcap", "float32", 1, 777, 777, 4, 2, 64, True, 100, 30.0),
 )
-#: serving path: granite-8b, requests x prompt tokens (cut from
-#: prefill_32k's 32 x 32768, whose SwiGLU intermediate does not fit)
-SERVE_ARCH = "granite-8b"
+#: RMSNorm checks: (case, dtype, rows, D).  The first (granite-8b's
+#: prefill rows) is timed; zamba2's out_norm over d_in 7168 beside it.
+RMS_CASES = (
+    ("granite-8b prefill", "bfloat16", 16384, 4096),
+    ("zamba2-7b out_norm", "bfloat16", 16384, 7168),
+    ("zamba2-7b decode", "bfloat16", 32, 3584),
+    ("f32", "float32", 1000, 3584),
+)
+#: flash-decode checks: (case, dtype, B, T, H, KV, hd, window, cap, ragged
+#: positions).  The first (granite-8b's 128 x 2048 cache, every request at
+#: its last position) is timed.
+DECODE_CASES = (
+    ("granite-8b 128x2048", "bfloat16", 128, 2048, 32, 8, 128, 0, 0.0, False),
+    ("granite-8b 32x8192 ragged", "bfloat16", 32, 8192, 32, 8, 128, 0, 0.0, True),
+    ("zamba2-7b 32x4096", "bfloat16", 32, 4096, 32, 32, 112, 0, 0.0, False),
+    ("gemma2-9b local 8x8192", "bfloat16", 8, 8192, 16, 8, 256, 4096, 50.0, True),
+    ("zamba2-7b 1x65536", "bfloat16", 1, 65536, 32, 32, 112, 0, 0.0, False),
+    ("f32 3x512 ragged", "float32", 3, 512, 8, 2, 64, 0, 0.0, True),
+)
+#: SSD state scan checks: (case, B, nc, nh, hd, N, Q).  The first
+#: (zamba2-7b's prefill, 4 x 4096 tokens) is timed.
+SSD_CASES = (
+    ("zamba2-7b prefill", 4, 16, 112, 64, 64, 256),
+    ("zamba2-7b 32768-token request", 1, 128, 112, 64, 64, 256),
+    ("tests/test_kernels.py", 2, 4, 3, 8, 16, 32),
+)
+#: tolerance of the SSD scan (``tests/test_kernels.py``'s, rtol = atol)
+SSD_TOL = 1e-5
+
+#: serving paths: requests x prompt tokens (cut from prefill_32k's
+#: 32 x 32768, whose SwiGLU intermediate does not fit)
 PREFILL_BATCH, PREFILL_LEN = 4, 4096
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 16, 16
-#: decode steps against a full cache: (requests, cache length), the same
-#: 262144 cached tokens (38.65 GB of bf16 K/V) cut from decode_32k's
-#: 128 x 32768 (618 GB); timed steps of each
-DECODE_CTX = ((128, 2048), (32, 8192))
+#: decode steps against a full cache: (requests, cache length).  granite:
+#: the same 262144 cached tokens (38.65 GB of bf16 K/V) cut from
+#: decode_32k's 128 x 32768 (618 GB); zamba2: 131072 tokens (24.4 GB of
+#: K/V over 13 applications, beside 4.76 GB of f32 SSM state at 32
+#: requests) cut from decode_32k (781 GB of K/V)
+DECODE_CTX = {"granite-8b": ((128, 2048), (32, 8192)),
+              "zamba2-7b": ((32, 4096), (8, 16384))}
 DECODE_CTX_STEPS = 5
-#: prefill logits against the same prefill with each plain attention
-#: (reference, blocked): max |diff| over max |logit|, and the argmax
-#: equal.  36 layers of random weights amplify every bf16 rounding: on
-#: the H100 the two plain attentions themselves differ by 4.9e-2 of max
-#: |logit|, and any two of the three by 3.9e-2 to 5.3e-2.  After the
-#: first layer, before any amplification, the limit is SHALLOW_RTOL
-#: (``walk_layers`` reads the spread at each of ``DEPTHS``); the
-#: kernel's own accuracy is held at every layer (``_hold``).
+#: decode steps profiled after ``generate``
+PROFILE_STEPS = 4
+#: prefill (and decode-step) logits against the same step with each
+#: plain path: max |diff| over max |logit|, and the argmax equal.  Deep
+#: stacks of random layers amplify every bf16 rounding: on the H100 the
+#: two plain attentions of granite-8b differ by 4.9e-2 of max |logit|,
+#: and any two of the three by 3.9e-2 to 5.3e-2.  After the first layer,
+#: before any amplification, the limit is SHALLOW_RTOL (``walk_layers``
+#: reads the spread at each of ``DEPTHS``); the kernel's own accuracy is
+#: held at every layer (``_hold``).
 PREFILL_RTOL = 1e-1
 SHALLOW_RTOL = 2e-2
 DEPTHS = (1, 2, 4, 9, 18, 36)
-#: the kernel against its plain version in float32 on the same values,
+#: a kernel against its plain version in float32 on the same values,
 #: element by element: twice the largest error of one rounding of the
 #: output to bf16 (2^-8 relative), plus float32 accumulation of at most
 #: ROW_ATOL of the row's RMS
@@ -142,6 +196,52 @@ def _graph_ms(fn, n_iter: int, repeats: int = 7) -> float:
     return _cuda_ms(graph.replay, 1, repeats) / n_iter
 
 
+def _bound(nbytes: float, flops: float, peak_flops: float) -> dict:
+    """The least time for ``nbytes`` moved and ``flops`` done: the larger
+    of the two times on the card's peaks, and which one it is."""
+    bytes_ms = nbytes / HBM_BPS * 1e3
+    ops_ms = flops / peak_flops * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms > bytes_ms else "bytes",
+                bytes=nbytes, flops=flops, bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import KERNELS
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import KERNELS
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def _want_launches(cfg, phase: str, steps: int = 1) -> dict:
+    """Every kernel's launches in one prefill or ``steps`` decode steps
+    of ``cfg`` under ``attention_impl="pallas"``: flash attention once
+    per attention layer in prefill, flash decode once per attention layer
+    and step, the SSD scan once per Mamba2 layer in prefill, RMSNorm for
+    every norm."""
+    if cfg.family == "hybrid":
+        attn, ssd = cfg.n_macro_blocks, cfg.n_layers
+        norms = 2 * cfg.n_layers + 2 * attn + 1
+    else:
+        attn, ssd = cfg.n_layers, 0
+        norms = (4 if cfg.post_norms else 2) * attn + 1
+    prefill = phase == "prefill"
+    return {"pump_assign": 0,
+            "flash_attention": attn if prefill else 0,
+            "rmsnorm": norms * (1 if prefill else steps),
+            "flash_decode": 0 if prefill else attn * steps,
+            "ssd_state_scan": ssd if prefill else 0}
+
+
+def _check_launches(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, want {want}")
+
+
 def _pump_inputs(rng, R: int, P: int, L: int, Np: int, case: str, dev):
     import torch
     ring = rng.uniform(0.0, 50.0, size=(R, P, L))
@@ -161,9 +261,9 @@ def _pump_inputs(rng, R: int, P: int, L: int, Np: int, case: str, dev):
 
 
 def check_pump(dev) -> dict:
-    """Phase 3: the pump kernel against ``pump_assign_ref`` on the card,
-    bitwise, at the main-path shapes and the edge cases; its time, the
-    plain version's time and the bound at the main-path shape."""
+    """The pump kernel against ``pump_assign_ref`` on the card, bitwise,
+    at the main-path shapes and the edge cases; its time, the plain
+    version's time and the bound at the main-path shape."""
     import numpy as np
     import torch
     from repro_torch.kernels.pump_assign import pump_assign, pump_assign_ref
@@ -212,39 +312,46 @@ def _attn_tol(dtype: str, window: int, cap: float) -> float:
     return 3e-5 if (window or cap) else 2e-5
 
 
-def _hold(got, q, k, v, pos, kw: dict, what: str) -> dict:
-    """The kernel's output ``got`` on ``q, k, v`` against its plain
-    version: at ``tests/test_kernels.py``'s tolerance on the same
-    inputs, and against the plain version in float32 on the same values
-    within twice one rounding of each output (2^-7 relative in bf16)
-    plus ``ROW_ATOL`` of its row's RMS.  The second limit scales with each
-    row: the flat one is as large as the outputs of the late rows of a
-    long causal sequence (|out| ~ 0.03 at row 4096).  Returns the
-    readings: max abs error, max error over its row's RMS, and the
-    largest share of the row limit used."""
+def _hold_rows(got, want, want32, tol: float, what: str) -> dict:
+    """A kernel's output ``got`` against its plain version: ``want`` on the
+    same inputs within ``tol`` (rtol = atol), and ``want32`` (the plain
+    version in float32 on the same values) element by element within
+    twice one rounding of the output (2^-7 relative in bf16) plus
+    ``ROW_ATOL`` of its row's RMS.  The second limit scales with each
+    row: a flat one is as large as small outputs (|out| ~ 0.03 at row
+    4096 of a long causal sequence).  Returns the readings: max abs
+    error, max error over its row's RMS, and the largest share of the
+    row limit used."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention_ref
     g = got.float()
-    want = flash_attention_ref(q, k, v, pos, pos, **kw).float()
-    tol = _attn_tol(str(q.dtype).removeprefix("torch."), kw["window"],
-                    kw["logit_cap"])
-    diff = (g - want).abs()
+    diff = (g - want.float()).abs()
     flat_ok = bool(torch.isfinite(got).all()) and bool(
-        (diff <= tol + tol * want.abs()).all())
+        (diff <= tol + tol * want.float().abs()).all())
     err = diff.max().item()
-    del want, diff
-    want = flash_attention_ref(q.float(), k.float(), v.float(), pos, pos, **kw)
-    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    del diff
+    rms = want32.pow(2).mean(-1, keepdim=True).sqrt()
     u = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
-    diff = (g - want).abs()
+    diff = (g - want32).abs()
     row_err = (diff / rms).max().item()
-    use = (diff / (u * want.abs() + ROW_ATOL * rms)).max().item()
+    use = (diff / (u * want32.abs() + ROW_ATOL * rms)).max().item()
     if not (flat_ok and use <= 1.0):
-        raise AssertionError(f"flash_attention differs from its plain "
-                             f"version on {what}: max abs err {err} (tol "
-                             f"{tol}), row limit used {use} (limit 1)")
+        raise AssertionError(f"{what}: max abs err {err} (tol {tol}), row "
+                             f"limit used {use} (limit 1)")
     return dict(max_abs_err=err, tol=tol, row_rel_err=row_err,
                 row_limit_used=use)
+
+
+def _hold(got, q, k, v, pos, kw: dict, what: str) -> dict:
+    """The flash kernel's output on ``q, k, v`` against its plain version
+    (``_hold_rows``)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    want = flash_attention_ref(q, k, v, pos, pos, **kw)
+    want32 = flash_attention_ref(q.float(), k.float(), v.float(), pos, pos,
+                                 **kw)
+    tol = _attn_tol(str(q.dtype).removeprefix("torch."), kw["window"],
+                    kw["logit_cap"])
+    return _hold_rows(got, want, want32, tol,
+                      f"flash_attention vs its plain version on {what}")
 
 
 def _visible_pairs(pos, causal: bool, window: int) -> int:
@@ -264,16 +371,17 @@ def _visible_pairs(pos, causal: bool, window: int) -> int:
 
 
 def check_flash(dev) -> dict:
-    """Phase 3b: the flash-attention kernel against
-    ``flash_attention_ref`` on the card at every ``ATTN_CASES`` shape;
-    at the serving path's shape its time, the plain version's, one
-    ``scaled_dot_product_attention`` call's, and the bounds."""
+    """The flash-attention kernel against ``flash_attention_ref`` on the
+    card at every ``ATTN_CASES`` shape; at granite-8b's prefill shape its
+    time, the plain version's, one ``scaled_dot_product_attention``
+    call's, and the bounds; at zamba2-7b's (hd 112) the kernel's and
+    the library call's times."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_ref)
     g = torch.Generator(dev).manual_seed(0)
-    rows, timed = [], None
+    rows, timed = [], []
     for case, dtype, B, S, T, H, KV, hd, causal, window, cap in ATTN_CASES:
         td = getattr(torch, dtype)
         q = torch.randn(B, S, H, hd, generator=g, device=dev).to(td)
@@ -285,61 +393,263 @@ def check_flash(dev) -> dict:
         torch.cuda.synchronize()
         rows.append(dict(case=case, **_hold(got, q, k, v, pos, kw, case)))
         del got
+        if len(timed) < 2:
+            timed.append((q, k, v, pos, kw))
+        else:
+            del q, k, v
+        torch.cuda.empty_cache()
+    times = []
+    for q, k, v, pos, kw in timed:
+        # the library's fused attention on the same data, (B, H, S, hd)
+        # layout made once outside the timing
+        sdpa = functools.partial(
+            F.scaled_dot_product_attention,
+            *(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+            is_causal=True, enable_gqa=True)
+        times.append((
+            _cuda_ms(lambda: flash_attention(q, k, v, pos, pos, **kw), 3, 5),
+            _cuda_ms(sdpa, 5, 5), sdpa))
+    (ms, library_ms, sdpa), (z_ms, z_library_ms, _) = times
+    q, k, v, pos, kw = timed[0]
+    B, S, H, hd = q.shape
+    lib_err = (sdpa().transpose(1, 2).float() - flash_attention(
+        q, k, v, pos, pos, **kw).float()).abs().max().item()
+    plain_ms = _cuda_ms(
+        lambda: flash_attention_ref(q, k, v, pos, pos, **kw), 2, 3)
+    pairs = _visible_pairs(pos, kw["causal"], kw["window"])
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + 2 * pos.numel() * 4
+    bound = _bound(nbytes, 4 * B * H * hd * pairs, BF16_FLOPS)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:79",
+                launches=0, max_abs_err=rows[0]["max_abs_err"], ms=ms,
+                plain_ms=plain_ms, **bound, library_ms=library_ms,
+                zamba2_ms=z_ms, zamba2_library_ms=z_library_ms,
+                zamba2_max_abs_err=rows[1]["max_abs_err"], cases=rows,
+                shape=dict(B=B, S=S, H=H, KV=k.shape[2], hd=hd,
+                           dtype=str(q.dtype)),
+                tflops=bound["flops"] / ms / 1e9, sdpa_max_abs_diff=lib_err)
+
+
+def check_rmsnorm(dev) -> dict:
+    """The RMSNorm kernel against ``rmsnorm_ref`` on the card at every
+    ``RMS_CASES`` shape (``tests/test_kernels.py``'s tolerances: bf16
+    2e-2, f32 1e-5); at the first its time, the plain version's, one
+    ``F.rms_norm`` call's (weight ``1 + w`` in x's dtype, made outside
+    the timing, so that it takes its fused path) and the bound; at
+    zamba2's out_norm width the kernel's and the library's times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    g = torch.Generator(dev).manual_seed(1)
+    rows, timed = [], []
+    for case, dtype, R, D in RMS_CASES:
+        x = torch.randn(R, D, generator=g, device=dev).to(getattr(torch, dtype))
+        w = 0.1 * torch.randn(D, generator=g, device=dev)
+        got = rmsnorm(x, w)
+        torch.cuda.synchronize()
+        want = rmsnorm_ref(x, w).float()
+        tol = 2e-2 if dtype == "bfloat16" else 1e-5
+        diff = (got.float() - want).abs()
+        if not (bool(torch.isfinite(got).all())
+                and bool((diff <= tol + tol * want.abs()).all())):
+            raise AssertionError(f"rmsnorm differs from its plain version on "
+                                 f"{case}: {diff.max().item()} (tol {tol})")
+        rows.append(dict(case=case, max_abs_err=diff.max().item(), tol=tol))
+        if len(timed) < 2:
+            timed.append((x, w))
+    res = {}
+    for tag, (x, w) in zip(("", "zamba2_"), timed):
+        D = x.shape[-1]
+        w1 = (1 + w).to(x.dtype)
+        res[tag + "ms"] = _cuda_ms(lambda: rmsnorm(x, w), 20)
+        res[tag + "library_ms"] = _cuda_ms(
+            lambda: F.rms_norm(x, (D,), w1, 1e-6), 20)
+        res[tag + "bound_ms"] = (2 * x.numel() * x.element_size()
+                                 + 4 * D) / HBM_BPS * 1e3
+    x, w = timed[0]
+    plain_ms = _cuda_ms(lambda: rmsnorm_ref(x, w), 20)
+    # bytes: x read once, y written once, w read once; five operations an
+    # element (square-add, scale, 1 + w, product) in f32
+    bound = _bound(2 * x.numel() * x.element_size() + 4 * x.shape[-1],
+                   5 * x.numel(), F32_FLOPS)
+    return dict(name="rmsnorm", route="cuda",
+                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                replaces="src/repro/kernels/rmsnorm.py:23", launches=0,
+                max_abs_err=rows[0]["max_abs_err"], ms=res["ms"],
+                plain_ms=plain_ms, **bound, library_ms=res["library_ms"],
+                zamba2_ms=res["zamba2_ms"],
+                zamba2_library_ms=res["zamba2_library_ms"],
+                zamba2_bound_ms=res["zamba2_bound_ms"], cases=rows,
+                shape=dict(rows=x.shape[0], D=x.shape[1], dtype=str(x.dtype)))
+
+
+def _decode_visible(pos, T: int, window: int) -> list:
+    """Keys each request's query sees: the work this data needs."""
+    out = []
+    for p in pos.tolist():
+        hi = min(p, T - 1)
+        lo = max(0, p - window + 1) if window > 0 else 0
+        out.append(max(0, hi - lo + 1))
+    return out
+
+
+def check_decode(dev) -> dict:
+    """The flash-decode kernel against ``flash_decode_ref`` on the card at
+    every ``DECODE_CASES`` shape (``_hold_rows``; ``tests/test_kernels.py``'s
+    tolerances), and unchanged, bit for bit, when the cache past each
+    request's position is overwritten with NaN; at the first its time,
+    the plain version's, one ``scaled_dot_product_attention`` call's on
+    the (B, KV, T, hd) views with a key mask, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        flash_decode, flash_decode_ref, n_splits)
+    g = torch.Generator(dev).manual_seed(2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, timed = [], None
+    for case, dtype, B, T, H, KV, hd, window, cap, ragged in DECODE_CASES:
+        td = getattr(torch, dtype)
+        q = torch.randn(B, H, hd, generator=g, device=dev).to(td)
+        k = torch.randn(B, T, KV, hd, generator=g, device=dev).to(td)
+        v = torch.randn(B, T, KV, hd, generator=g, device=dev).to(td)
+        if ragged:
+            pos = torch.randint(0, T, (B,), generator=g, device=dev,
+                                dtype=torch.int32)
+            pos[0] = T - 1
+        else:
+            pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
+        kw = dict(window=window, logit_cap=cap)
+        got = flash_decode(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        want = flash_decode_ref(q, k, v, pos, **kw)
+        want32 = flash_decode_ref(q.float(), k.float(), v.float(), pos, **kw)
+        r = _hold_rows(got, want, want32, _attn_tol(dtype, window, cap),
+                       f"flash_decode vs its plain version on {case}")
+        del want, want32
+        if ragged:
+            past = torch.arange(T, device=dev)[None, :] > pos[:, None]
+            k2, v2 = k.clone(), v.clone()
+            k2[past], v2[past] = float("nan"), float("nan")
+            if not torch.equal(got, flash_decode(q, k2, v2, pos, **kw)):
+                raise AssertionError(f"flash_decode on {case}: the output "
+                                     f"changed when the cache past pos did")
+            del k2, v2
+        rows.append(dict(case=case, splits=n_splits(B, KV, H // KV, T, sms),
+                         past_pos_overwritten=ragged, **r))
         if timed is None:
-            timed = (q, k, v, pos, kw, rows[-1]["max_abs_err"])
+            timed = (q, k, v, pos, kw, r["max_abs_err"])
         else:
             del q, k, v
         torch.cuda.empty_cache()
     q, k, v, pos, kw, err = timed
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    ms = _cuda_ms(lambda: flash_attention(q, k, v, pos, pos, **kw), 3, 5)
-    plain_ms = _cuda_ms(lambda: flash_attention_ref(q, k, v, pos, pos, **kw),
-                        2, 3)
-    # the library's fused attention on the same data, (B, H, S, hd) layout
-    # made once outside the timing
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-    lib_err = (sdpa().transpose(1, 2).float()
-               - flash_attention(q, k, v, pos, pos, **kw).float()).abs().max()
-    library_ms = _cuda_ms(sdpa, 5, 5)
-    pairs = _visible_pairs(pos, kw["causal"], kw["window"])
-    flops = 4 * B * H * hd * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + 2 * pos.numel() * 4
-    ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:79",
+    B, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    ms = _cuda_ms(lambda: flash_decode(q, k, v, pos, **kw), 20)
+    plain_ms = _cuda_ms(lambda: flash_decode_ref(q, k, v, pos, **kw), 3)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None, :] <= pos[:, None])[:, None, None]
+    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 5)
+    keys = sum(_decode_visible(pos, T, kw["window"]))
+    nbytes = (2 * keys * KV * hd + 2 * q.numel()) * q.element_size() + 4 * B
+    bound = _bound(nbytes, 4 * keys * (H // KV) * KV * hd, BF16_FLOPS)
+    return dict(name="flash_decode", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                replaces="src/repro/kernels/decode_attention.py:68",
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                library_ms=library_ms, cases=rows,
-                shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=str(q.dtype)),
-                flops=flops, bytes=nbytes, tflops=flops / ms / 1e9,
-                sdpa_max_abs_diff=lib_err.item())
+                **bound, library_ms=library_ms, cases=rows,
+                shape=dict(B=B, T=T, H=H, KV=KV, hd=hd, dtype=str(q.dtype)),
+                gb_s=bound["bytes"] / ms / 1e6)
 
 
-def drive_prefill(dev):
-    """Serving path, prefill: granite-8b at full width and depth with
-    random weights from a seed, ``build_prefill_step(last_only=True)``
-    on ``PREFILL_BATCH`` x ``PREFILL_LEN`` tokens with the flash kernel,
-    warm, timed ``WALL_REPEATS`` times with the kernel's launches
-    counted from 0 for each; then the same prefill with the reference
-    attention, compared.  Returns the row, the model and the tokens."""
+def _ssd_inputs(g, B, nc, nh, hd, N, Q, dev):
+    """``tests/test_kernels.py``'s inputs: states and C normal, totals and
+    cum minus the magnitude of a normal."""
+    import torch
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    return (rn(B, nc, nh, hd, N), -rn(B, nc, nh).abs(), rn(B, nc, Q, N),
+            -rn(B, nc, Q, nh).abs())
+
+
+def _hold_ssd(got, want, what: str) -> dict:
+    import torch
+    errs = {}
+    for name, a, b in zip(("y", "final"), got, want):
+        diff = (a - b).abs()
+        if not (bool(torch.isfinite(a).all())
+                and bool((diff <= SSD_TOL + SSD_TOL * b.abs()).all())):
+            raise AssertionError(f"ssd_state_scan vs its plain version on "
+                                 f"{what}: {name} max abs err "
+                                 f"{diff.max().item()} (tol {SSD_TOL})")
+        errs[f"max_abs_err_{name}"] = diff.max().item()
+        errs[f"max_abs_{name}"] = b.abs().max().item()
+    return errs
+
+
+def check_ssd(dev) -> dict:
+    """The SSD state-scan kernel against ``ssd_state_scan_ref`` on the card
+    at every ``SSD_CASES`` shape at ``SSD_TOL``; at the first its time,
+    the plain version's and the bound (no single PyTorch call computes
+    it)."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ssd_state_scan, ssd_state_scan_ref
+    g = torch.Generator(dev).manual_seed(3)
+    rows, timed = [], None
+    for case, B, nc, nh, hd, N, Q in SSD_CASES:
+        args = _ssd_inputs(g, B, nc, nh, hd, N, Q, dev)
+        got = ssd_state_scan(*args)
+        torch.cuda.synchronize()
+        r = _hold_ssd(got, ssd_state_scan_ref(*args), case)
+        rows.append(dict(case=case, **r))
+        del got
+        if timed is None:
+            timed = (args, max(r["max_abs_err_y"], r["max_abs_err_final"]))
+    args, err = timed
+    B, nc, nh, hd, N = args[0].shape
+    Q = args[2].shape[2]
+    ms = _cuda_ms(lambda: ssd_state_scan(*args), 20)
+    plain_ms = _cuda_ms(lambda: ssd_state_scan_ref(*args), 3)
+    # inputs read once, y and the final state written once; per chunk and
+    # head the (Q x N) @ (N x hd) product, its exp(cum) scaling and the
+    # state update
+    nbytes = 4 * (sum(a.numel() for a in args) + B * nc * Q * nh * hd
+                  + B * nh * hd * N)
+    flops = B * nc * nh * (2 * Q * N * hd + Q * hd + 2 * hd * N)
+    bound = _bound(nbytes, flops, F32_FLOPS)
+    return dict(name="ssd_state_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_state_scan.cu",
+                replaces="src/repro/kernels/ssm_scan.py:48", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
+                library_ms=None, cases=rows,
+                shape=dict(B=B, nc=nc, nh=nh, hd=hd, N=N, Q=Q))
+
+
+def build_lm(arch: str, dev):
+    """``arch`` at full width and depth with random weights from seed 0;
+    returns (model, seconds to build and fill it)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.steps import build_prefill_step
-    from repro_torch.models.sharding import ModelContext
     from repro_torch.models.zoo import build_model
-    cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
-    model = build_model(cfg, dev).init_params(
+    model = build_model(get_config(arch), dev).init_params(
         torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return model, time.perf_counter() - t0
+
+
+def drive_prefill(model, init_s: float) -> tuple:
+    """Serving path, prefill: ``build_prefill_step(last_only=True)`` under
+    ``attention_impl="pallas"`` on ``PREFILL_BATCH`` x ``PREFILL_LEN``
+    tokens, warm, timed ``WALL_REPEATS`` times, every kernel's launches
+    counted from 0 for each; then the same prefill with each plain
+    attention (``reference``: every layer plain; ``blocked``), compared.
+    Returns the row, the tokens and one run's launches."""
+    import torch
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.sharding import ModelContext
+    cfg, dev = model.cfg, model.device
     n_params = sum(p.numel() for p in model.parameters())
     tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
                            generator=torch.Generator(dev).manual_seed(1),
@@ -349,18 +659,16 @@ def drive_prefill(dev):
     step(tokens)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    want = _want_launches(cfg, "prefill")
     walls, counts = [], []
     for _ in range(WALL_REPEATS):
-        flash_attention.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         logits = step(tokens)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts.append(flash_attention.launches)
-        if counts[-1] != cfg.n_layers:
-            raise AssertionError(f"prefill: {counts[-1]} flash-attention "
-                                 f"launches, want one per layer "
-                                 f"({cfg.n_layers})")
+        counts.append(_launches())
+        _check_launches(counts[-1], want, f"{cfg.name} prefill")
     peak = torch.cuda.max_memory_allocated()
     if logits.shape != (PREFILL_BATCH, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
@@ -372,11 +680,11 @@ def drive_prefill(dev):
     ref, blk = other["reference"], other["blocked"]
     scale = ref.abs().max().item()
     wall = statistics.median(walls)
-    row = dict(arch=SERVE_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                params=n_params, batch=PREFILL_BATCH, prompt=PREFILL_LEN,
                init_s=init_s, wall_s=wall, wall_s_runs=walls,
                tokens_s=PREFILL_BATCH * PREFILL_LEN / wall,
-               flash_launches=counts, peak_mem_gb=peak / 1e9,
+               launches=counts[0], peak_mem_gb=peak / 1e9,
                logits_max_abs=scale,
                dev_vs_reference=(logits.float() - ref).abs().max().item(),
                dev_vs_blocked=(logits.float() - blk).abs().max().item(),
@@ -385,23 +693,23 @@ def drive_prefill(dev):
                **{f"argmax_agree_{impl}": float(
                    (logits.argmax(-1) == o.argmax(-1)).float().mean().item())
                   for impl, o in other.items()})
-    return row, model, tokens
+    return row, tokens, counts[0]
 
 
 def check_prefill(row: dict) -> None:
-    """The kernel's prefill logits against both plain attentions': within
+    """The kernels' prefill logits against both plain paths': within
     ``PREFILL_RTOL`` of max |logit|, and the same argmax on every
     request."""
     scale = row["logits_max_abs"]
     for impl in ("reference", "blocked"):
         dev = row[f"dev_vs_{impl}"]
         if not dev <= PREFILL_RTOL * scale:
-            raise AssertionError(f"prefill logits, flash vs {impl} "
-                                 f"attention: max |diff| {dev} > "
-                                 f"{PREFILL_RTOL} x max |logit| {scale}")
+            raise AssertionError(f"{row['arch']} prefill logits, kernels vs "
+                                 f"{impl}: max |diff| {dev} > {PREFILL_RTOL} "
+                                 f"x max |logit| {scale}")
         if row[f"argmax_agree_{impl}"] != 1.0:
-            raise AssertionError(f"prefill: flash and {impl} attention "
-                                 f"pick different next tokens")
+            raise AssertionError(f"{row['arch']} prefill: the kernels and "
+                                 f"{impl} pick different next tokens")
 
 
 def _last_logits(model, x):
@@ -413,16 +721,16 @@ def _last_logits(model, x):
 
 
 def walk_layers(model, tokens) -> dict:
-    """One prefill walked layer by layer three times over, each stream
-    carrying its own residual: with the kernel, the reference attention
-    and the blocked attention.  At every layer the kernel is held
-    (``_hold``) on the reference stream's own q, k, v.  At each of
-    ``DEPTHS`` the three streams' last-position logits are compared,
-    over max |logit| of the reference stream: how the spread between
-    equally correct attentions grows with depth.  After the first layer
-    the kernel must lie within ``SHALLOW_RTOL`` of each plain attention,
-    at every depth within ``PREFILL_RTOL``.  These launches are checks,
-    not the main path's."""
+    """One granite prefill walked layer by layer three times over, each
+    stream carrying its own residual: under ``pallas`` (the kernels), with
+    the reference attention and with the blocked attention.  At every
+    layer the flash kernel is held (``_hold``) on the reference stream's
+    own q, k, v.  At each of ``DEPTHS`` the three streams' last-position
+    logits are compared, over max |logit| of the reference stream: how
+    the spread between equally correct paths grows with depth.  After the
+    first layer the kernels must lie within ``SHALLOW_RTOL`` of each plain
+    path, at every depth within ``PREFILL_RTOL``.  These launches are
+    checks, not the main path's."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import layers as L
@@ -450,7 +758,7 @@ def walk_layers(model, tokens) -> dict:
                 continue
             lg = {impl: _last_logits(model, x) for impl, x in xs.items()}
             scale = lg["reference"].abs().max().item()
-            rel = lambda a, b: (lg[a] - lg[b]).abs().max().item() / scale
+            rel = lambda a, b: (lg[a] - lg[b]).abs().max().item() / scale  # noqa: E731
             pt = dict(depth=i + 1, logits_max_abs=scale,
                       flash_vs_reference=rel("pallas", "reference"),
                       flash_vs_blocked=rel("pallas", "blocked"),
@@ -462,7 +770,7 @@ def walk_layers(model, tokens) -> dict:
             for o in ("reference", "blocked"):
                 if not pt[f"flash_vs_{o}"] <= limit:
                     raise AssertionError(
-                        f"logits after {i + 1} layers, flash vs {o}: "
+                        f"logits after {i + 1} layers, kernels vs {o}: "
                         f"{pt[f'flash_vs_{o}']} of max |logit| > {limit}")
     return dict(arch=model.cfg.name, layers=len(model.blocks),
                 tol=_attn_tol("bfloat16", 0, 0.0), row_atol=ROW_ATOL,
@@ -470,9 +778,39 @@ def walk_layers(model, tokens) -> dict:
                 by_depth=curve)
 
 
+def walk_ssd(model, tokens) -> dict:
+    """zamba2's prefill walked through its first macro-block on the
+    all-plain path: at each Mamba2 layer the SSD state-scan kernel is
+    held to its plain version at ``SSD_TOL`` on that layer's own states,
+    totals, C and cum.  These launches are checks, not the main path's."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ssd_state_scan, ssd_state_scan_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.mamba2 import CHUNK, ssd_chunk_terms
+    from repro_torch.models.sharding import ModelContext
+    ctx = ModelContext(attention_impl="reference")
+    rows = []
+    with torch.no_grad():
+        x = L.embed(tokens, model.embed)
+        for i in range(model.cfg.mamba_per_block):
+            blk = model.mamba[i]
+            _, xh, dt, A, Bm, Cm, _ = blk.ssd_inputs(x, ctx)
+            _, states, total, Cc, cum = ssd_chunk_terms(
+                xh.float(), dt, A, Bm.float(), Cm.float(),
+                min(CHUNK, tokens.shape[1]))
+            got = ssd_state_scan(states, total, Cc, cum)
+            torch.cuda.synchronize()
+            rows.append(dict(layer=i, **_hold_ssd(
+                got, ssd_state_scan_ref(states, total, Cc, cum),
+                f"Mamba2 layer {i}'s inputs")))
+            del got, states, total, Cc, cum, xh, dt, Bm, Cm
+            x = x + blk(x, ctx)
+    return dict(arch=model.cfg.name, tol=SSD_TOL, layers=rows)
+
+
 def profile_prefill(model, tokens) -> dict:
-    """Device busy time and the top kernels of one warm prefill, from
-    ``torch.profiler``."""
+    """Device busy time and the top kernels of one warm prefill under
+    ``pallas``, from ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.steps import build_prefill_step
@@ -484,101 +822,143 @@ def profile_prefill(model, tokens) -> dict:
         step(tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _device_rows(prof, wall, "prefill " + SERVE_ARCH)
+    return _device_rows(prof, wall, "prefill " + model.cfg.name)
 
 
-def profile_decode(model) -> dict:
-    """Device busy time and the top kernels of ``generate`` (warm), from
-    ``torch.profiler``."""
+def drive_decode(model) -> tuple:
+    """Serving path, decode: ``generate`` under ``pallas`` on the
+    prefill's model, greedy, warm then timed, every kernel's launches
+    counted from 0; then ``PROFILE_STEPS`` of its decode steps under
+    ``torch.profiler``.  Returns the row and the launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import generate
-    prompts = torch.zeros((DECODE_BATCH, DECODE_PROMPT), dtype=torch.int32,
-                          device=model.device)
-    generate(model, prompts, DECODE_NEW)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate(model, prompts, DECODE_NEW)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return _device_rows(prof, wall, "decode " + SERVE_ARCH)
-
-
-def drive_decode(model) -> dict:
-    """Serving path, decode: ``generate`` on the prefill's model, greedy,
-    warm then timed; no flash-attention launch (the reference's decode
-    runs no kernel either)."""
-    import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import generate
-    V = model.cfg.vocab_size
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.sharding import ModelContext
+    ctx = ModelContext(attention_impl="pallas")
+    cfg, dev = model.cfg, model.device
+    V = cfg.vocab_size
     prompts = torch.randint(0, V, (DECODE_BATCH, DECODE_PROMPT),
-                            generator=torch.Generator(model.device).manual_seed(2),
-                            device=model.device, dtype=torch.int32)
-    generate(model, prompts, DECODE_NEW)
+                            generator=torch.Generator(dev).manual_seed(2),
+                            device=dev, dtype=torch.int32)
+    generate(model, prompts, DECODE_NEW, ctx)
     torch.cuda.synchronize()
-    flash_attention.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
-    toks = generate(model, prompts, DECODE_NEW)
+    toks = generate(model, prompts, DECODE_NEW, ctx)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = _launches()
+    steps = DECODE_PROMPT + DECODE_NEW - 1
+    _check_launches(launches, _want_launches(cfg, "decode", steps),
+                    f"{cfg.name} generate")
     if toks.shape != (DECODE_BATCH, DECODE_PROMPT + DECODE_NEW):
         raise AssertionError(f"generate: shape {tuple(toks.shape)}")
     if not (bool(torch.equal(toks[:, :DECODE_PROMPT], prompts))
             and int(toks.min()) >= 0 and int(toks.max()) < V):
         raise AssertionError("generate: prompt not kept or ids outside the "
                              "vocabulary")
-    if flash_attention.launches:
-        raise AssertionError("generate launched the prefill kernel")
-    steps = DECODE_PROMPT + DECODE_NEW - 1
-    return dict(arch=SERVE_ARCH, batch=DECODE_BATCH, prompt=DECODE_PROMPT,
-                new=DECODE_NEW, wall_s=wall, steps=steps,
-                step_ms=wall / steps * 1e3,
-                new_tokens_s=DECODE_BATCH * DECODE_NEW / wall,
-                sample=toks[0, DECODE_PROMPT:].tolist())
+    step = build_serve_step(model, ctx)
+    cache = model.init_cache(DECODE_BATCH, DECODE_PROMPT + DECODE_NEW)
+    pos = torch.zeros((DECODE_BATCH,), dtype=torch.int32, device=dev)
+    step(cache, toks[:, 0], pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, PROFILE_STEPS + 1):
+            step(cache, toks[:, t], pos + t)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    row = dict(arch=cfg.name, batch=DECODE_BATCH, prompt=DECODE_PROMPT,
+               new=DECODE_NEW, wall_s=wall, steps=steps,
+               step_ms=wall / steps * 1e3,
+               new_tokens_s=DECODE_BATCH * DECODE_NEW / wall,
+               launches=launches, sample=toks[0, DECODE_PROMPT:].tolist(),
+               profile=_device_rows(prof, pwall, f"decode {cfg.name}, "
+                                    f"{PROFILE_STEPS} steps"))
+    return row, launches
 
 
-def drive_decode_ctx(model) -> list:
-    """Serving path, decode at a deployment-like context: for each
-    ``DECODE_CTX`` (requests, cache length), ``build_serve_step`` against
-    a cache of that length filled with random keys and values, every
-    request at its last position (a step reads the whole cache whatever
-    the position).  One warm step, ``DECODE_CTX_STEPS`` timed, two under
-    ``torch.profiler``; the bound is the weights and the cache read once
-    at ``HBM_BPS``."""
+def _fill_cache(cache: dict, g) -> None:
+    """Random keys, values and Mamba2 state in place."""
+    for c in cache.values():
+        if isinstance(c, dict):
+            _fill_cache(c, g)
+        else:
+            c.normal_(generator=g)
+
+
+def drive_decode_ctx(model) -> tuple:
+    """Serving path, decode at a deployment-like context: for each of the
+    model's ``DECODE_CTX`` (requests, cache length), ``build_serve_step``
+    against a cache of that length filled with random keys, values and
+    state, every request at its last position (a step reads the whole
+    cache whatever the position).  One step under ``pallas`` (flash
+    decode) and one with the plain grouped einsum, from the same cache
+    (the Mamba2 state restored between them), logits compared; then one
+    warm step and ``DECODE_CTX_STEPS`` timed under ``pallas``, launches
+    counted, and two under ``torch.profiler``.  The bound is the weights
+    and the cache read once and the Mamba2 state read and written once,
+    at ``HBM_BPS``.  Returns the rows and one timed run's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.steps import build_serve_step
     from repro_torch.models.sharding import ModelContext
-    dev, V = model.device, model.cfg.vocab_size
-    step = build_serve_step(model, ModelContext())
+    cfg, dev, V = model.cfg, model.device, model.cfg.vocab_size
+    step = build_serve_step(model, ModelContext(attention_impl="pallas"))
+    plain = build_serve_step(model, ModelContext())
     g = torch.Generator(dev).manual_seed(3)
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    rows = []
-    for B, T in DECODE_CTX:
+    rows, launches = [], {}
+    for B, T in DECODE_CTX[cfg.name]:
         cache = model.init_cache(B, T)
-        for c in cache.values():
-            c.normal_(generator=g)
-        c_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+        _fill_cache(cache, g)
+        nbytes = lambda c: c.numel() * c.element_size()  # noqa: E731
+        kv_bytes = nbytes(cache["k"]) + nbytes(cache["v"])
+        st_bytes = sum(nbytes(c) for c in cache.get("mamba", {}).values())
         tokens = torch.randint(0, V, (B,), generator=g, device=dev,
                                dtype=torch.int32)
         pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
-        step(cache, tokens, pos)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
+        snap = {k: c.clone() for k, c in cache.get("mamba", {}).items()}
+        got, _ = step(cache, tokens, pos)
+        got = got.float()
+        for k, c in snap.items():
+            cache["mamba"][k].copy_(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = plain(cache, tokens, pos)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        want = want.float()
+        for k, c in snap.items():
+            cache["mamba"][k].copy_(c)
+        del snap
+        scale = want.abs().max().item()
+        diff = (got - want).abs().max().item()
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean().item())
+        if not (bool(torch.isfinite(got).all()) and diff <= PREFILL_RTOL * scale):
+            raise AssertionError(f"{cfg.name} decode {B}x{T}: flash decode vs "
+                                 f"einsum logits max |diff| {diff} > "
+                                 f"{PREFILL_RTOL} x max |logit| {scale}")
+        step(cache, tokens, pos)
+        torch.cuda.synchronize()
+        _reset_launches()
         t0 = time.perf_counter()
         for _ in range(DECODE_CTX_STEPS):
             logits, _ = step(cache, tokens, pos)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / DECODE_CTX_STEPS
+        counts = _launches()
+        _check_launches(counts, _want_launches(cfg, "decode", DECODE_CTX_STEPS),
+                        f"{cfg.name} decode {B}x{T}")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
         if logits.shape != (B, V) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"decode step {B}x{T}: logits shape "
                                  f"{tuple(logits.shape)} or not finite")
-        if flash_attention.launches:
-            raise AssertionError("the decode step launched the prefill kernel")
+        peak = torch.cuda.max_memory_allocated()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -587,15 +967,18 @@ def drive_decode_ctx(model) -> list:
             torch.cuda.synchronize()
             pwall = time.perf_counter() - t0
         rows.append(dict(
-            arch=SERVE_ARCH, batch=B, cache_len=T, cache_gb=c_bytes / 1e9,
-            steps=DECODE_CTX_STEPS, step_ms=wall * 1e3,
+            arch=cfg.name, batch=B, cache_len=T, cache_gb=kv_bytes / 1e9,
+            state_gb=st_bytes / 1e9, steps=DECODE_CTX_STEPS,
+            step_ms=wall * 1e3, einsum_step_ms=plain_ms,
             new_tokens_s=B / wall,
-            bound_ms=(w_bytes + c_bytes) / HBM_BPS * 1e3,
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            bound_ms=(w_bytes + kv_bytes + 2 * st_bytes) / HBM_BPS * 1e3,
+            peak_mem_gb=peak / 1e9, logits_max_abs=scale,
+            flash_vs_einsum=diff, argmax_agree=agree, rtol=PREFILL_RTOL,
+            launches=counts,
             profile=_device_rows(prof, pwall, f"decode {B}x{T}, 2 steps")))
-        del cache, logits
+        del cache, logits, got, want
         torch.cuda.empty_cache()
-    return rows
+    return rows, launches
 
 
 def _specs(pattern: str, arch: str, n: int, msgs: int):
@@ -607,14 +990,14 @@ def _specs(pattern: str, arch: str, n: int, msgs: int):
 
 
 def drive_main_path(dev) -> tuple[list, int]:
-    """Phase 4: every main-path cell through ``run_many`` on the card,
-    warm (after one untimed run), timed ``WALL_REPEATS`` times, each
-    run with the pump launches counted from 0.  Returns the per-cell rows and the total launches."""
+    """Every wave cell through ``run_many`` on the card, warm (after one
+    untimed run), timed ``WALL_REPEATS`` times, each run with the
+    launches counted from 0.  Returns the per-cell rows and the total
+    pump launches."""
     import torch
     from repro_torch import run_many, summarize
     from repro_torch.core import torch_device_loop as dl
     from repro_torch.core.cell import WaveCell
-    from repro_torch.kernels.pump_assign import pump_assign
     rows, total = [], 0
     for pattern, arch, n, msgs in MAIN_CELLS:
         specs = _specs(pattern, arch, n, msgs)
@@ -629,16 +1012,17 @@ def drive_main_path(dev) -> tuple[list, int]:
         need = (2 if pattern == "feedback" else 1) * n_steps
         walls, counts = [], []
         for _ in range(WALL_REPEATS):
-            pump_assign.launches = 0
+            _reset_launches()
             t0 = time.perf_counter()
             res = run_many(specs, device=dev)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            counts.append(pump_assign.launches)
-            if counts[-1] < need:
+            got = _launches()
+            counts.append(got.pop("pump_assign"))
+            if counts[-1] < need or any(got.values()):
                 raise AssertionError(
-                    f"{pattern}/{arch}: {counts[-1]} pump launches < {need}: "
-                    f"the main path missed the kernel")
+                    f"{pattern}/{arch}: {counts[-1]} pump launches (need "
+                    f"{need}), others {got}: the main path missed the kernel")
         launches = counts[0]
         total += launches
         for r in res:
@@ -658,8 +1042,8 @@ def drive_main_path(dev) -> tuple[list, int]:
 
 
 def cross_check(dev) -> dict:
-    """Phase 5: the 64-consumer Fig 4 cell on the card and on the CPU,
-    traces and summaries compared at ``XDEV_RTOL``."""
+    """The 64-consumer Fig 4 cell on the card and on the CPU, traces and
+    summaries compared at ``XDEV_RTOL``."""
     import numpy as np
     from repro_torch import run_many, summarize
     from repro_torch.core import torch_device_loop as dl
@@ -730,7 +1114,36 @@ def _device_rows(prof, wall: float, cell: str) -> dict:
                 idle_share=1.0 - busy / wall if rows else "not measured",
                 device_events=sum(r[1] for r in rows),
                 top=[dict(us=r[0], count=r[1], name=r[2][:80])
-                     for r in rows[:8]])
+                     for r in rows[:10]])
+
+
+def serve(arch: str, dev, done, walk) -> tuple:
+    """Every serving phase of ``arch``: build, prefill (checked),
+    ``walk`` (the per-layer checks), prefill profile, ``generate``,
+    decode at context.  Returns the launches of each main-path run by
+    path."""
+    import torch
+    model, init_s = build_lm(arch, dev)
+    prefill, tokens, counts = drive_prefill(model, init_s)
+    print("serve prefill:", json.dumps(prefill))
+    by_path = {f"{arch} prefill": counts}
+    check_prefill(prefill)
+    done(f"{arch} prefill")
+    print("serve layers:", json.dumps(walk(model, tokens)))
+    done(f"{arch} prefill by layer")
+    print("profile:", json.dumps(profile_prefill(model, tokens)))
+    row, by_path[f"{arch} generate"] = drive_decode(model)
+    print("serve decode:", json.dumps(row))
+    done(f"{arch} prefill profile and generate")
+    rows, by_path[f"{arch} decode at context"] = drive_decode_ctx(model)
+    for r in rows:
+        print("serve decode context:", json.dumps(r))
+    done(f"{arch} decode at context")
+    print(f"{arch} peak memory: {torch.cuda.max_memory_allocated() / 1e9} GB")
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def main() -> int:
@@ -765,38 +1178,36 @@ def main() -> int:
     # versions are the yardsticks of the f32 checks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pump = check_pump(dev)
-    print("kernel check:", json.dumps(pump))
-    flash = check_flash(dev)
-    print("kernel check:", json.dumps(flash))
+    kernels = {}
+    for check in (check_pump, check_flash, check_rmsnorm, check_decode,
+                  check_ssd):
+        row = check(dev)
+        kernels[row["name"]] = row
+        print("kernel check:", json.dumps(row))
+        torch.cuda.empty_cache()
     done("kernel checks")
-    rows, launches = drive_main_path(dev)
+    rows, pump_launches = drive_main_path(dev)
     for r in rows:
         print("main path:", json.dumps(r))
-    pump["launches"] = launches
+    by_path = {"wave": {"pump_assign": pump_launches}}
     done("wave cells")
     print("cross-check:", json.dumps(cross_check(dev)))
     print("profile:", json.dumps(profile_cell(dev)))
     done("wave cross-check and profile")
-    prefill, model, tokens = drive_prefill(dev)
-    print("serve prefill:", json.dumps(prefill))
-    flash["launches"] = prefill["flash_launches"][0]
-    done("prefill")
-    print("serve layers:", json.dumps(walk_layers(model, tokens)))
-    done("prefill by layer")
-    print("profile:", json.dumps(profile_prefill(model, tokens)))
-    print("serve decode:", json.dumps(drive_decode(model)))
-    print("profile:", json.dumps(profile_decode(model)))
-    done("prefill profile and generate")
-    for r in drive_decode_ctx(model):
-        print("serve decode context:", json.dumps(r))
-    done("decode at context")
+    by_path.update(serve("granite-8b", dev, done, walk_layers))
+    by_path.update(serve("zamba2-7b", dev, done, walk_ssd))
     print("phase seconds:", json.dumps(phase_s))
-    check_prefill(prefill)
+    for name, row in kernels.items():
+        row["launches"] = sum(c.get(name, 0) for c in by_path.values())
+        row["launches_by_path"] = {p: c[name] for p, c in by_path.items()
+                                   if c.get(name)}
+        if not row["launches"]:
+            raise AssertionError(f"{name}: no launch on the main paths")
+    print("launches by path:", json.dumps(by_path))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in (pump, flash)]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+                                  for row in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Config registry of the port: ``get_config(name)`` /
-``get_smoke_config(name)`` over the dense architectures.  The other
-families' configs join with their models."""
+``get_smoke_config(name)`` over the dense architectures and the hybrid
+zamba2.  The other families' configs join with their models."""
 
-from repro_torch.configs import gemma2_9b, granite_3_8b, granite_8b, granite_34b
+from repro_torch.configs import (
+    gemma2_9b, granite_3_8b, granite_8b, granite_34b, zamba2_7b)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import LONG_CAPABLE, SHAPES, Shape, shapes_for
 
@@ -11,6 +12,7 @@ _MODULES = {
     "granite-34b": granite_34b,
     "gemma2-9b": gemma2_9b,
     "granite-3-8b": granite_3_8b,
+    "zamba2-7b": zamba2_7b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -44,10 +44,13 @@
 // cores (989 TFLOP/s bf16); mma/wgmma tiles, TMA loads and a pipelined KV
 // ring are left to later work.
 //
-// Shared memory: Q (64 x (hd+4)) + K/V (64 x (hd+4)) + S/P (64 x 68) f32,
+// Shared memory: Q (64 x (HDP+4)) + K/V (64 x (HDP+4)) + S/P (64 x 68) f32,
 // 85.5 KB at hd = 128 and 148 KB at hd = 256, above the 48 KB static limit,
 // so it is dynamic and the launcher raises the kernel's limit first.  The +4
-// padding keeps the 16-byte row loads of K free of bank conflicts.
+// padding keeps the 16-byte row loads of K free of bank conflicts.  HDP is
+// hd rounded up to a multiple of 64, the width of the P.V column split: a
+// head dim of 112 (zamba2) is staged in tiles 128 wide whose last 16
+// columns are zero, and only its 112 columns are stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,10 +92,16 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// the head dim padded to the P.V column split
+template <int HD>
+__host__ __device__ constexpr int padded() {
+  return (HD + 63) / 64 * 64;
+}
+
 template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (HD + 4) + BK * (HD + 4) + BQ * LDP +
-                                  BQ + BQ) +
+  constexpr int LD = padded<HD>() + 4;
+  return sizeof(float) * (size_t)(BQ * LD + BK * LD + BQ * LDP + BQ + BQ) +
          sizeof(int) * (size_t)(BQ + BK);
 }
 
@@ -102,7 +111,7 @@ template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int64_t row_stride, int n,
                                           float mul) {
-  constexpr int LD = HD + 4;
+  constexpr int LD = padded<HD>() + 4;
   for (int e = threadIdx.x; e < BK * HD; e += THREADS) {
     const int r = e / HD, d = e % HD;
     dst[r * LD + d] = r < n ? to_f32(src[(int64_t)r * row_stride + d]) * mul
@@ -113,8 +122,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const Args a) {
-  constexpr int LD = HD + 4;
-  constexpr int NC = HD / 64;  // float4 column groups a thread owns in P.V
+  constexpr int HDP = padded<HD>();
+  constexpr int LD = HDP + 4;
+  constexpr int NC = HDP / 64;  // float4 column groups a thread owns in P.V
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* KVs = Qs + BQ * LD;
@@ -141,6 +151,10 @@ __global__ void __launch_bounds__(THREADS)
   T* og = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh +
           (int64_t)q0 * a.o_ss;
 
+  // the padding columns of the K/V tile stay zero (tiles write d < HD)
+  if constexpr (HDP > HD)
+    for (int e = threadIdx.x; e < BK * (HDP - HD); e += THREADS)
+      KVs[(e / (HDP - HD)) * LD + HD + e % (HDP - HD)] = 0.f;
   load_tile<T, HD>(Qs, qg, a.q_ss, nrows, a.scale);
   if (tid < BQ) qp_s[tid] = tid < nrows ? a.qpos[q0 + tid] : 0;
   const int q_first = a.qpos[q0], q_last = a.qpos[q0 + nrows - 1];
@@ -300,8 +314,9 @@ __global__ void __launch_bounds__(THREADS)
     for (int n = 0; n < NC; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        store(&og[(int64_t)row * a.o_ss + 64 * n + 4 * tx + e],
-              acc[i][n][e] / l);
+        if (64 * n + 4 * tx + e < HD)
+          store(&og[(int64_t)row * a.o_ss + 64 * n + 4 * tx + e],
+                acc[i][n][e] / l);
   }
 }
 
@@ -321,6 +336,7 @@ template <typename T>
 int dispatch_hd(const Args& a, int hd, cudaStream_t stream) {
   switch (hd) {
     case 64: return launch<T, 64>(a, stream);
+    case 112: return launch<T, 112>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     case 256: return launch<T, 256>(a, stream);
     default: return (int)cudaErrorInvalidValue;

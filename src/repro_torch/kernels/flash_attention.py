@@ -24,7 +24,7 @@ import torch
 #: additive mask value of the reference (never -inf: see the kernel source)
 NEG_INF = -1e30
 #: head dims the CUDA kernel is built for
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 112, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

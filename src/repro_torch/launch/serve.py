@@ -5,6 +5,8 @@ Runs on the GPU unless asked for the CPU::
 
     python -m repro_torch.launch.serve --arch granite-8b
     python -m repro_torch.launch.serve --arch granite-8b-smoke --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-7b
+    python -m repro_torch.launch.serve --arch zamba2-7b-smoke --device cpu
 """
 
 from __future__ import annotations
@@ -18,11 +20,10 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.steps import build_serve_step
 from repro_torch.models.sharding import ModelContext
-from repro_torch.models.transformer import TransformerLM
-from repro_torch.models.zoo import build_model
+from repro_torch.models.zoo import LM, build_model
 
 
-def generate(model: TransformerLM, prompts: torch.Tensor, max_new: int,
+def generate(model: LM, prompts: torch.Tensor, max_new: int,
              ctx: Optional[ModelContext] = None, greedy: bool = True,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """prompts: (B, P) token ids.  Returns (B, P+max_new) int32 tokens on

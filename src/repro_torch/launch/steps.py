@@ -10,17 +10,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.sharding import ModelContext
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.zoo import LM
 
 
-def build_serve_step(model: TransformerLM, ctx: ModelContext):
+def build_serve_step(model: LM, ctx: ModelContext):
     @torch.no_grad()
     def serve_step(cache: dict, tokens: torch.Tensor, pos: torch.Tensor):
         return model.decode_step(cache, tokens, pos, ctx)
     return serve_step
 
 
-def build_prefill_step(model: TransformerLM, ctx: ModelContext,
+def build_prefill_step(model: LM, ctx: ModelContext,
                        last_only: bool = False):
     @torch.no_grad()
     def prefill_step(tokens: torch.Tensor) -> torch.Tensor:

@@ -8,12 +8,15 @@ Attention implementations (``ModelContext.attention_impl``):
   and the small-sequence default.
 * ``blocked``   — online softmax over KV blocks in plain PyTorch; O(S*block)
   memory.
-* ``pallas``    — the hand-written flash-attention kernel
-  (:func:`repro_torch.kernels.ops.flash_attention`; on CPU tensors its
-  plain version).  The name is the reference's.
+* ``pallas``    — the hand-written kernels (on CPU tensors their plain
+  versions): flash attention for train/prefill, flash decode for
+  :func:`decode_attention`, and the fused RMSNorm for :func:`rmsnorm`.
+  The name is the reference's switch for its Pallas kernels, whose oracles
+  are these layers (``repro.kernels.ref``).
 
 K/V are expanded to the full head count for train/prefill attention;
-decode attends with a grouped einsum against the KV cache.
+decode attends with a grouped einsum against the KV cache, or the flash
+decode kernel.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.decode_attention import flash_decode_ref
 from repro_torch.kernels.flash_attention import (
     NEG_INF, _expand_kv, _mask_bias, flash_attention_ref, softcap)
+from repro_torch.kernels.rmsnorm import rmsnorm_ref
 from repro_torch.models.sharding import ModelContext
 
 __all__ = ["NEG_INF", "rmsnorm", "softcap", "rope", "attention_reference",
@@ -38,15 +43,13 @@ __all__ = ["NEG_INF", "rmsnorm", "softcap", "rope", "attention_reference",
 # --------------------------------------------------------------------------
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            ctx: Optional[ModelContext] = None) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` with float32 statistics,
-    cast back to x's dtype."""
-    dt = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * (1.0 + w.float())
-    return out.to(dt)
+    cast back to x's dtype; the fused kernel under ``pallas``."""
+    if ctx is not None and ctx.attention_impl == "pallas":
+        return kops.rmsnorm(x, w, eps=eps)
+    return rmsnorm_ref(x, w, eps)
 
 
 # --------------------------------------------------------------------------
@@ -146,25 +149,14 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, logit_cap=0.0,
 
     q: (B, H, hd); k_cache/v_cache: (B, T, KV, hd); pos: (B,) index of the
     current token (already written into the cache).  Grouped einsum, no
-    KV expansion; keys past ``pos`` (and outside the window) are masked.
+    KV expansion (the flash decode kernel under ``pallas``); keys past
+    ``pos`` (and outside the window) are masked.
     """
-    B, H, hd = q.shape
-    KV = k_cache.shape[2]
-    G = H // KV
-    T = k_cache.shape[1]
-    scale = (hd ** -0.5) if scale is None else scale
-    qg = q.reshape(B, KV, G, hd).float() * scale
-    s = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.float())
-    if logit_cap > 0:
-        s = softcap(s, logit_cap)
-    t_idx = torch.arange(T, device=q.device)
-    ok = t_idx[None, :] <= pos[:, None]                       # (B, T)
-    if window > 0:
-        ok &= (pos[:, None] - t_idx[None, :]) < window
-    s = torch.where(ok[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgt,btkh->bkgh", p, v_cache.float())
-    return out.reshape(B, H, hd).to(q.dtype)
+    fn = (kops.flash_decode
+          if ctx is not None and ctx.attention_impl == "pallas"
+          else flash_decode_ref)
+    return fn(q, k_cache, v_cache, pos, window=window, logit_cap=logit_cap,
+              scale=scale)
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,10 @@ The counterpart of the reference's ``repro.models.sharding``.  The port
 runs on one card, so the mesh, the logical-axis rules and the sharding
 constraints have no counterpart here, and neither has Pallas's
 interpret mode or the cost-probe scan unrolling.  What is left selects
-the attention implementation.
+the attention implementation, and with ``"pallas"`` the hand-written
+kernels: flash attention (prefill), flash decode (decode attention), the
+fused RMSNorm (every norm) and the SSD state scan (the inter-chunk step
+of every Mamba2 prefill).  On CPU tensors each runs its plain version.
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ ATTENTION_IMPLS = ("auto", "reference", "blocked", "pallas")
 class ModelContext:
     """``attention_impl``: ``reference`` (full score matrix), ``blocked``
     (online softmax over KV blocks in plain PyTorch), ``pallas`` (the
-    hand-written flash-attention kernel, :func:`repro_torch.kernels.ops.
-    flash_attention`; the name is the reference's), or ``auto``
-    (``blocked`` for sequences longer than ``blocked_threshold``, else
-    ``reference``)."""
+    hand-written kernels of :mod:`repro_torch.kernels.ops`: flash
+    attention, flash decode, RMSNorm and the SSD state scan; the name is
+    the reference's), or ``auto`` (``blocked`` for sequences longer than
+    ``blocked_threshold``, else ``reference``).  Every mode but
+    ``pallas`` runs norms, decode attention and the SSD scan in plain
+    PyTorch."""
 
     attention_impl: str = "auto"
     blocked_threshold: int = 2048

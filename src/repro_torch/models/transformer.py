@@ -15,8 +15,11 @@ same arithmetic.  Weights keep the reference orientation (``x @ w``,
 ``(in, out)``), so carrying them over (:func:`params_from_jax`) is a copy
 and a cast.  This slice serves: no parameter requires a gradient.
 
-The MoE family (``models/moe.py``), the audio and VLM frontends, and the
-hybrid and xLSTM families are later slices of the port.
+Under ``attention_impl="pallas"`` every norm runs the fused RMSNorm
+kernel and decode the flash decode kernel, beside flash attention.  The
+hybrid family is :mod:`repro_torch.models.hybrid` (its shared block is a
+:class:`Block`); the MoE family (``models/moe.py``), the audio and VLM
+frontends and the xLSTM family are later slices of the port.
 """
 
 from __future__ import annotations
@@ -73,11 +76,11 @@ class Block(nn.Module):
         k = L.rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        h = L.rmsnorm(x, self.mlp_norm)
+    def _mlp(self, x: torch.Tensor, ctx: ModelContext) -> torch.Tensor:
+        h = L.rmsnorm(x, self.mlp_norm, ctx=ctx)
         m = L.swiglu(h, self.wi, self.wo_mlp)
         if self.cfg.post_norms:
-            m = L.rmsnorm(m, self.post_mlp_norm)
+            m = L.rmsnorm(m, self.post_mlp_norm, ctx=ctx)
         return x + m
 
     def forward(self, x: torch.Tensor, window: int, positions: torch.Tensor,
@@ -85,15 +88,15 @@ class Block(nn.Module):
         """x: (B, S, D); ``window`` static (0 = global)."""
         B, S, _ = x.shape
         cfg = self.cfg
-        h = L.rmsnorm(x, self.attn_norm)
+        h = L.rmsnorm(x, self.attn_norm, ctx=ctx)
         q, k, v = self._attn_proj(h, positions)
         a = L.attention(q, k, v, positions, positions, causal=True,
                         window=window, logit_cap=cfg.attn_logit_softcap,
                         ctx=ctx)
         a = a.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo
         if cfg.post_norms:
-            a = L.rmsnorm(a, self.post_attn_norm)
-        return self._mlp(x + a)
+            a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
+        return self._mlp(x + a, ctx)
 
     def decode(self, x: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,
                pos: torch.Tensor, window: int, ctx: ModelContext
@@ -102,7 +105,7 @@ class Block(nn.Module):
         ``k_l``/``v_l`` (B, T, KV, hd) at ``pos`` in place."""
         B = x.shape[0]
         cfg = self.cfg
-        h = L.rmsnorm(x, self.attn_norm)
+        h = L.rmsnorm(x, self.attn_norm, ctx=ctx)
         q, k, v = self._attn_proj(h, pos[:, None])
         _cache_write(k_l, k[:, 0], pos)
         _cache_write(v_l, v[:, 0], pos)
@@ -110,8 +113,8 @@ class Block(nn.Module):
                                logit_cap=cfg.attn_logit_softcap, ctx=ctx)
         a = a.reshape(B, cfg.n_heads * cfg.hd) @ self.wo
         if cfg.post_norms:
-            a = L.rmsnorm(a, self.post_attn_norm)
-        return self._mlp(x + a[:, None])
+            a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
+        return self._mlp(x + a[:, None], ctx)
 
 
 def _cache_write(cache_l: torch.Tensor, kv_t: torch.Tensor,
@@ -135,9 +138,10 @@ class TransformerLM(nn.Module):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                "(the port serves the dense family; MoE, the audio/VLM "
-                "frontends, hybrid and xLSTM are later slices)")
+                f"{cfg.name}: the {cfg.family!r} family is not a dense "
+                "transformer (the port serves the dense and hybrid "
+                "families; MoE, the audio/VLM frontends and xLSTM are "
+                "later slices)")
         if cfg.attn_pattern == "local_global" and cfg.n_layers % 2:
             raise ValueError(f"{cfg.name}: local_global needs an even layer "
                              f"count, got {cfg.n_layers}")
@@ -185,7 +189,7 @@ class TransformerLM(nn.Module):
             x = blk(x, window, positions, ctx)
         if last_only:
             x = x[:, -1:]
-        x = L.rmsnorm(x, self.final_norm)
+        x = L.rmsnorm(x, self.final_norm, ctx=ctx)
         return L.unembed(x, self.head(), self.cfg.final_logit_softcap)
 
     def prefill(self, tokens: torch.Tensor,
@@ -209,7 +213,7 @@ class TransformerLM(nn.Module):
         x = L.embed(tokens[:, None], self.embed)
         for i, (blk, window) in enumerate(zip(self.blocks, self.windows)):
             x = blk.decode(x, cache["k"][i], cache["v"][i], pos, window, ctx)
-        x = L.rmsnorm(x[:, 0], self.final_norm)
+        x = L.rmsnorm(x[:, 0], self.final_norm, ctx=ctx)
         return L.unembed(x, self.head(), self.cfg.final_logit_softcap), cache
 
 

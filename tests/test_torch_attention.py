@@ -62,6 +62,7 @@ def _np(x):
     (2, 256, 8, 2, 16, 128, 64),     # GQA 4:1
     (1, 192, 4, 1, 64, 64, 64),      # MQA, ragged S/block
     (2, 64, 2, 2, 128, 64, 32),      # TPU-width head_dim
+    (2, 128, 4, 4, 112, 64, 64),     # zamba2's head_dim
 ])
 def test_plain_attention_matches_pallas_interpret_and_oracle(
         B, S, H, KV, hd, bq, bk, dtype):
@@ -209,6 +210,8 @@ def test_mlp_unembed_and_loss_match_reference():
     ("bfloat16", 1, 300, 300, 4, 2, 256, True, 128, 50.0),
     ("float32", 2, 256, 256, 4, 4, 64, True, 0, 0.0),
     ("float32", 1, 200, 200, 4, 1, 64, False, 0, 0.0),
+    ("bfloat16", 2, 300, 300, 4, 4, 112, True, 0, 0.0),
+    ("float32", 1, 130, 130, 2, 2, 112, True, 64, 30.0),
 ])
 def test_kernel_matches_plain_version_on_gpu(dtype, B, S, T, H, KV, hd,
                                              causal, window, cap):
