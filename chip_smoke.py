@@ -143,8 +143,8 @@ DECODE_CTX_STEPS = 5
 #: decode steps profiled after ``generate``
 PROFILE_STEPS = 4
 #: prefill (and decode-step) logits against the same step with each
-#: plain path: max |diff| over max |logit|, and the argmax equal.  Deep
-#: stacks of random layers amplify every bf16 rounding: on the H100 the
+#: plain path: max |diff| over max |logit|, and the prefill's next token
+#: equal where it is decided (``check_prefill``).  Deep stacks of random layers amplify every bf16 rounding: on the H100 the
 #: two plain attentions of granite-8b differ by 4.9e-2 of max |logit|,
 #: and any two of the three by 3.9e-2 to 5.3e-2.  After the first layer,
 #: before any amplification, the limit is SHALLOW_RTOL (``walk_layers``
@@ -692,14 +692,35 @@ def drive_prefill(model, init_s: float) -> tuple:
                rtol=PREFILL_RTOL,
                **{f"argmax_agree_{impl}": float(
                    (logits.argmax(-1) == o.argmax(-1)).float().mean().item())
-                  for impl, o in other.items()})
+                  for impl, o in other.items()},
+               requests=_argmax_readings(logits.float(), ref, blk))
     return row, tokens, counts[0]
+
+
+def _argmax_readings(got, ref, blk) -> list:
+    """For each request: the reference's top-two logit gap, the plain
+    paths' spread (max |reference - blocked| over its logits), whether
+    the request is held (gap > spread: the next token is decided beyond
+    what two equally correct paths disagree by) and each path's next
+    token."""
+    top2 = ref.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    spreads = (ref - blk).abs().max(-1).values.tolist()
+    picks = {name: x.argmax(-1).tolist()
+             for name, x in (("kernels", got), ("reference", ref),
+                             ("blocked", blk))}
+    return [dict(request=i, gap=gap, plain_spread=spread,
+                 held=gap > spread, **{n: p[i] for n, p in picks.items()})
+            for i, (gap, spread) in enumerate(zip(gaps, spreads))]
 
 
 def check_prefill(row: dict) -> None:
     """The kernels' prefill logits against both plain paths': within
-    ``PREFILL_RTOL`` of max |logit|, and the same argmax on every
-    request."""
+    ``PREFILL_RTOL`` of max |logit|; and the same next token as both on
+    every request whose reference top-two gap exceeds the plain paths'
+    spread there.  A closer request is a tie within rounding (two plain
+    paths already pick different tokens on such requests), so it is
+    printed, not held; at least one request must be held."""
     scale = row["logits_max_abs"]
     for impl in ("reference", "blocked"):
         dev = row[f"dev_vs_{impl}"]
@@ -707,9 +728,19 @@ def check_prefill(row: dict) -> None:
             raise AssertionError(f"{row['arch']} prefill logits, kernels vs "
                                  f"{impl}: max |diff| {dev} > {PREFILL_RTOL} "
                                  f"x max |logit| {scale}")
-        if row[f"argmax_agree_{impl}"] != 1.0:
-            raise AssertionError(f"{row['arch']} prefill: the kernels and "
-                                 f"{impl} pick different next tokens")
+    held = [r for r in row["requests"] if r["held"]]
+    print(f"serve prefill argmax: {row['arch']} held {len(held)} of "
+          f"{len(row['requests'])}:", json.dumps(row["requests"]))
+    if not held:
+        raise AssertionError(f"{row['arch']} prefill: no request's top-two "
+                             f"gap exceeds the plain paths' spread, so no "
+                             f"next token is held: {row['requests']}")
+    for r in held:
+        if not r["kernels"] == r["reference"] == r["blocked"]:
+            raise AssertionError(f"{row['arch']} prefill request "
+                                 f"{r['request']}: next tokens differ "
+                                 f"(gap {r['gap']} > spread "
+                                 f"{r['plain_spread']}): {r}")
 
 
 def _last_logits(model, x):
