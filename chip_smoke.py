@@ -33,7 +33,10 @@ kernel's launches counted from 0 just before it and read just after:
   greedy) and a profile of a few of its decode steps; decode steps
   against a full cache of 128 x 2048 and 32 x 8192 tokens with flash
   decode, each beside one step with the plain grouped einsum, logits
-  compared;
+  compared; one decode step at 128 x 2048 walked layer by layer with
+  flash decode, the einsum and a second plain decode attention, flash
+  decode held on every layer's own q and cache and the logits compared
+  by depth;
 * serving zamba2-7b at full width and depth (81 Mamba2 layers, the
   shared attention block 13 times, random bf16 weights from a seed),
   after granite's memory is freed: the prefill step on 4 x 4096 tokens
@@ -809,6 +812,121 @@ def walk_layers(model, tokens) -> dict:
                 by_depth=curve)
 
 
+#: the decode walk's (requests, cache length): granite's first
+#: ``DECODE_CTX`` shape
+WALK_DECODE = (128, 2048)
+
+
+def _decode_attention_plain2(blk, x, k_l, v_l, pos, window):
+    """``Block.decode`` with its attention replaced by the second plain
+    decode attention: ``flash_attention_ref`` at S = 1, the query at
+    ``pos`` (the same for every request) over every cached key, masked
+    causally and by the window (probabilities in v's dtype, as the
+    reference's ``attention_reference``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.sharding import ModelContext
+    from repro_torch.models.transformer import _cache_write
+    cfg, B, T = blk.cfg, x.shape[0], k_l.shape[1]
+    h = L.rmsnorm(x, blk.attn_norm)
+    q, k, v = blk._attn_proj(h, pos[:, None])
+    _cache_write(k_l, k[:, 0], pos)
+    _cache_write(v_l, v[:, 0], pos)
+    a = flash_attention_ref(q, k_l, v_l, pos[:1],
+                            torch.arange(T, device=x.device), causal=True,
+                            window=window, logit_cap=cfg.attn_logit_softcap)
+    a = a.reshape(B, cfg.n_heads * cfg.hd) @ blk.wo
+    if cfg.post_norms:
+        a = L.rmsnorm(a, blk.post_attn_norm)
+    return blk._mlp(x + a[:, None], ModelContext())
+
+
+def walk_decode(model) -> dict:
+    """One decode step against a full ``WALK_DECODE`` cache (random keys,
+    values and tokens from a seed, every request at the last position),
+    walked layer by layer three times over, each stream with its own
+    residual: under ``pallas`` (flash decode and the kernels' norms),
+    with the grouped einsum (``flash_decode_ref``) and with the second
+    plain decode attention (``_decode_attention_plain2``).  Each stream
+    writes its own key and value at ``pos`` before it attends.  At every
+    layer flash decode is held (``_hold_rows``) on the einsum stream's own
+    q and cache.  At each of ``DEPTHS`` the streams' logits are compared
+    over max |logit| of the einsum stream: after the first layer the
+    kernels must lie within ``SHALLOW_RTOL`` of each plain path, at every
+    depth within ``PREFILL_RTOL``.  These launches are checks, not the
+    main path's."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        flash_decode, flash_decode_ref)
+    from repro_torch.models import layers as L
+    from repro_torch.models.sharding import ModelContext
+    from repro_torch.models.transformer import _cache_write
+    cfg, dev = model.cfg, model.device
+    B, T = WALK_DECODE
+    g = torch.Generator(dev).manual_seed(4)
+    cache = model.init_cache(B, T)
+    _fill_cache(cache, g)
+    tokens = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+    pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
+    pallas, plain = ModelContext(attention_impl="pallas"), ModelContext()
+    cap = cfg.attn_logit_softcap
+    worst = dict(max_abs_err=0.0, row_rel_err=0.0, row_limit_used=0.0)
+    curve = []
+    with torch.no_grad():
+        xs = dict.fromkeys(("flash", "einsum", "plain2"),
+                           L.embed(tokens[:, None], model.embed))
+        for i, (blk, window) in enumerate(zip(model.blocks, model.windows)):
+            k_l, v_l = cache["k"][i], cache["v"][i]
+            q, k, v = blk._attn_proj(L.rmsnorm(xs["einsum"], blk.attn_norm),
+                                     pos[:, None])
+            _cache_write(k_l, k[:, 0], pos)
+            _cache_write(v_l, v[:, 0], pos)
+            kw = dict(window=window, logit_cap=cap)
+            got = flash_decode(q[:, 0], k_l, v_l, pos, **kw)
+            r = _hold_rows(
+                got, flash_decode_ref(q[:, 0], k_l, v_l, pos, **kw),
+                flash_decode_ref(q[:, 0].float(), k_l.float(), v_l.float(),
+                                 pos, **kw),
+                _attn_tol("bfloat16", window, cap),
+                f"flash_decode vs its plain version on layer {i}'s q and "
+                f"cache")
+            worst = {key: max(val, r[key]) for key, val in worst.items()}
+            del got, q, k, v
+            xs = {"flash": blk.decode(xs["flash"], k_l, v_l, pos, window,
+                                      pallas),
+                  "einsum": blk.decode(xs["einsum"], k_l, v_l, pos, window,
+                                       plain),
+                  "plain2": _decode_attention_plain2(blk, xs["plain2"], k_l,
+                                                     v_l, pos, window)}
+            if i + 1 not in DEPTHS:
+                continue
+            lg = {name: _last_logits(model, x) for name, x in xs.items()}
+            scale = lg["einsum"].abs().max().item()
+            rel = lambda a, b: (lg[a] - lg[b]).abs().max().item() / scale  # noqa: E731
+            pt = dict(depth=i + 1, logits_max_abs=scale,
+                      flash_vs_einsum=rel("flash", "einsum"),
+                      flash_vs_plain2=rel("flash", "plain2"),
+                      plain2_vs_einsum=rel("plain2", "einsum"),
+                      argmax_agree={name: float(
+                          (lg[name].argmax(-1) == lg["einsum"].argmax(-1))
+                          .float().mean().item()) for name in lg})
+            curve.append(pt)
+            limit = SHALLOW_RTOL if i == 0 else PREFILL_RTOL
+            for o in ("einsum", "plain2"):
+                if not pt[f"flash_vs_{o}"] <= limit:
+                    raise AssertionError(
+                        f"decode logits after {i + 1} layers, kernels vs "
+                        f"{o}: {pt[f'flash_vs_{o}']} of max |logit| > "
+                        f"{limit}")
+    del cache
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, batch=B, cache_len=T, layers=len(model.blocks),
+                tol=_attn_tol("bfloat16", 0, 0.0), row_atol=ROW_ATOL, **worst,
+                shallow_rtol=SHALLOW_RTOL, rtol=PREFILL_RTOL, by_depth=curve)
+
+
 def walk_ssd(model, tokens) -> dict:
     """zamba2's prefill walked through its first macro-block on the
     all-plain path: at each Mamba2 layer the SSD state-scan kernel is
@@ -1148,10 +1266,11 @@ def _device_rows(prof, wall: float, cell: str) -> dict:
                      for r in rows[:10]])
 
 
-def serve(arch: str, dev, done, walk) -> tuple:
+def serve(arch: str, dev, done, walk, walk_dec=None) -> tuple:
     """Every serving phase of ``arch``: build, prefill (checked),
     ``walk`` (the per-layer checks), prefill profile, ``generate``,
-    decode at context.  Returns the launches of each main-path run by
+    decode at context, and ``walk_dec`` (the decode step's per-layer
+    checks) where given.  Returns the launches of each main-path run by
     path."""
     import torch
     model, init_s = build_lm(arch, dev)
@@ -1170,6 +1289,9 @@ def serve(arch: str, dev, done, walk) -> tuple:
     for r in rows:
         print("serve decode context:", json.dumps(r))
     done(f"{arch} decode at context")
+    if walk_dec is not None:
+        print("serve decode layers:", json.dumps(walk_dec(model)))
+        done(f"{arch} decode by layer")
     print(f"{arch} peak memory: {torch.cuda.max_memory_allocated() / 1e9} GB")
     del model, tokens
     gc.collect()
@@ -1225,7 +1347,7 @@ def main() -> int:
     print("cross-check:", json.dumps(cross_check(dev)))
     print("profile:", json.dumps(profile_cell(dev)))
     done("wave cross-check and profile")
-    by_path.update(serve("granite-8b", dev, done, walk_layers))
+    by_path.update(serve("granite-8b", dev, done, walk_layers, walk_decode))
     by_path.update(serve("zamba2-7b", dev, done, walk_ssd))
     print("phase seconds:", json.dumps(phase_s))
     for name, row in kernels.items():
