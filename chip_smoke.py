@@ -213,6 +213,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels import KERNELS
     for fn in KERNELS.values():
         fn.launches = 0
+    KERNELS["flash_attention"].tc_launches = 0
 
 
 def _launches() -> dict:
@@ -373,16 +374,31 @@ def _visible_pairs(pos, causal: bool, window: int) -> int:
     return n
 
 
+def _fma_copy(q):
+    """q at a pointer 2 bytes off 16-byte alignment: TMA cannot address
+    it, so the wrapper's rule sends a call with it to the FMA kernel."""
+    import torch
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    out = buf[1:].view(q.shape)
+    out.copy_(q)
+    return out
+
+
 def check_flash(dev) -> dict:
-    """The flash-attention kernel against ``flash_attention_ref`` on the
-    card at every ``ATTN_CASES`` shape; at granite-8b's prefill shape its
-    time, the plain version's, one ``scaled_dot_product_attention``
-    call's, and the bounds; at zamba2-7b's (hd 112) the kernel's and
-    the library call's times."""
+    """The flash-attention kernels against ``flash_attention_ref`` on the
+    card at every ``ATTN_CASES`` shape, each on the route the wrapper's
+    rule picks (every bf16 case at hd 64, 112 or 128 must run the
+    tensor-core kernel); at granite-8b's and zamba2-7b's prefill shapes,
+    for each route (the FMA kernel reached with a q that TMA cannot
+    address), the time a launch, the registers and CTAs an SM that the
+    compiler and the occupancy API report, the row-limit share and the
+    rate, beside one ``scaled_dot_product_attention`` call's time; at
+    granite's shape the plain version's time and the bounds."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_ref)
+    from repro_torch.kernels import flash_attention as fa
+    flash_attention, flash_attention_ref = fa.flash_attention, \
+        fa.flash_attention_ref
     g = torch.Generator(dev).manual_seed(0)
     rows, timed = [], []
     for case, dtype, B, S, T, H, KV, hd, causal, window, cap in ATTN_CASES:
@@ -392,47 +408,72 @@ def check_flash(dev) -> dict:
         v = torch.randn(B, T, KV, hd, generator=g, device=dev).to(td)
         pos = torch.arange(S, device=dev, dtype=torch.int32)
         kw = dict(causal=causal, window=window, logit_cap=cap)
+        route = fa.route(q, k, v)
+        if route != ("tc" if dtype == "bfloat16" and hd in fa.TC_HEAD_DIMS
+                     else "fma"):
+            raise AssertionError(f"flash_attention on {case}: route {route}")
+        n_tc = flash_attention.tc_launches
         got = flash_attention(q, k, v, pos, pos, **kw)
         torch.cuda.synchronize()
-        rows.append(dict(case=case, **_hold(got, q, k, v, pos, kw, case)))
+        if flash_attention.tc_launches - n_tc != (route == "tc"):
+            raise AssertionError(f"flash_attention on {case}: tc_launches "
+                                 f"moved by {flash_attention.tc_launches - n_tc}")
+        rows.append(dict(case=case, route=route,
+                         **_hold(got, q, k, v, pos, kw, case)))
         del got
         if len(timed) < 2:
             timed.append((q, k, v, pos, kw))
         else:
             del q, k, v
         torch.cuda.empty_cache()
-    times = []
-    for q, k, v, pos, kw in timed:
+    shapes = {}
+    for tag, (q, k, v, pos, kw) in zip(("granite", "zamba2"), timed):
+        B, S, H, hd = q.shape
         # the library's fused attention on the same data, (B, H, S, hd)
         # layout made once outside the timing
         sdpa = functools.partial(
             F.scaled_dot_product_attention,
             *(x.transpose(1, 2).contiguous() for x in (q, k, v)),
             is_causal=True, enable_gqa=True)
-        times.append((
-            _cuda_ms(lambda: flash_attention(q, k, v, pos, pos, **kw), 3, 5),
-            _cuda_ms(sdpa, 5, 5), sdpa))
-    (ms, library_ms, sdpa), (z_ms, z_library_ms, _) = times
+        library_ms = _cuda_ms(sdpa, 5, 5)
+        lib_err = (sdpa().transpose(1, 2).float() - flash_attention(
+            q, k, v, pos, pos, **kw).float()).abs().max().item()
+        pairs = _visible_pairs(pos, kw["causal"], kw["window"])
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+            + 2 * pos.numel() * 4
+        bound = _bound(nbytes, 4 * B * H * hd * pairs, BF16_FLOPS)
+        # the tensor-core kernel's own work: P.V twice (P_hi and P_lo)
+        floor_ms = 6 * B * H * hd * pairs / BF16_FLOPS * 1e3
+        routes = {}
+        for route, qq in (("tc", q), ("fma", _fma_copy(q))):
+            if fa.route(qq, k, v) != route:
+                raise AssertionError(f"{tag}: route {fa.route(qq, k, v)}")
+            n = 5 if route == "tc" else 1
+            ms = _cuda_ms(lambda: flash_attention(qq, k, v, pos, pos, **kw),
+                          n * 3, 5)
+            held = _hold(flash_attention(qq, k, v, pos, pos, **kw), q, k, v,
+                         pos, kw, f"{tag}'s prefill shape, {route} route")
+            routes[route] = dict(
+                ms=ms, **fa.kernel_info(route, q.dtype, hd), **held,
+                tflops=bound["flops"] / ms / 1e9,
+                bound_share=bound["bound_ms"] / ms, sdpa_factor=ms / library_ms)
+            del qq
+        shapes[tag] = dict(
+            shape=dict(B=B, S=S, H=H, KV=k.shape[2], hd=hd,
+                       dtype=str(q.dtype)),
+            library_ms=library_ms, sdpa_max_abs_diff=lib_err,
+            tc_floor_ms=floor_ms, routes=routes, **bound)
     q, k, v, pos, kw = timed[0]
-    B, S, H, hd = q.shape
-    lib_err = (sdpa().transpose(1, 2).float() - flash_attention(
-        q, k, v, pos, pos, **kw).float()).abs().max().item()
     plain_ms = _cuda_ms(
         lambda: flash_attention_ref(q, k, v, pos, pos, **kw), 2, 3)
-    pairs = _visible_pairs(pos, kw["causal"], kw["window"])
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + 2 * pos.numel() * 4
-    bound = _bound(nbytes, 4 * B * H * hd * pairs, BF16_FLOPS)
+    gr = shapes["granite"]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:79",
-                launches=0, max_abs_err=rows[0]["max_abs_err"], ms=ms,
-                plain_ms=plain_ms, **bound, library_ms=library_ms,
-                zamba2_ms=z_ms, zamba2_library_ms=z_library_ms,
-                zamba2_max_abs_err=rows[1]["max_abs_err"], cases=rows,
-                shape=dict(B=B, S=S, H=H, KV=k.shape[2], hd=hd,
-                           dtype=str(q.dtype)),
-                tflops=bound["flops"] / ms / 1e9, sdpa_max_abs_diff=lib_err)
+                launches=0, max_abs_err=rows[0]["max_abs_err"],
+                ms=gr["routes"]["tc"]["ms"], plain_ms=plain_ms,
+                bound_ms=gr["bound_ms"], bound_by=gr["bound_by"],
+                library_ms=gr["library_ms"], shapes=shapes, cases=rows)
 
 
 def check_rmsnorm(dev) -> dict:
@@ -650,6 +691,7 @@ def drive_prefill(model, init_s: float) -> tuple:
     attention (``reference``: every layer plain; ``blocked``), compared.
     Returns the row, the tokens and one run's launches."""
     import torch
+    from repro_torch.kernels import KERNELS
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models.sharding import ModelContext
     cfg, dev = model.cfg, model.device
@@ -672,6 +714,11 @@ def drive_prefill(model, init_s: float) -> tuple:
         walls.append(time.perf_counter() - t0)
         counts.append(_launches())
         _check_launches(counts[-1], want, f"{cfg.name} prefill")
+        tc = KERNELS["flash_attention"].tc_launches
+        if tc != want["flash_attention"]:
+            raise AssertionError(f"{cfg.name} prefill: {tc} of "
+                                 f"{want['flash_attention']} flash-attention "
+                                 f"launches on the tensor-core kernel")
     peak = torch.cuda.max_memory_allocated()
     if logits.shape != (PREFILL_BATCH, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
@@ -687,7 +734,7 @@ def drive_prefill(model, init_s: float) -> tuple:
                params=n_params, batch=PREFILL_BATCH, prompt=PREFILL_LEN,
                init_s=init_s, wall_s=wall, wall_s_runs=walls,
                tokens_s=PREFILL_BATCH * PREFILL_LEN / wall,
-               launches=counts[0], peak_mem_gb=peak / 1e9,
+               launches=counts[0], tc_launches=tc, peak_mem_gb=peak / 1e9,
                logits_max_abs=scale,
                dev_vs_reference=(logits.float() - ref).abs().max().item(),
                dev_vs_blocked=(logits.float() - blk).abs().max().item(),
@@ -971,7 +1018,8 @@ def profile_prefill(model, tokens) -> dict:
         step(tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _device_rows(prof, wall, "prefill " + model.cfg.name)
+    return _device_rows(prof, wall, "prefill " + model.cfg.name,
+                        share_of="flash_tc_kernel")
 
 
 def drive_decode(model) -> tuple:
@@ -1243,9 +1291,10 @@ def profile_cell(dev) -> dict:
     return _device_rows(prof, wall, "work_sharing/dts/c1024")
 
 
-def _device_rows(prof, wall: float, cell: str) -> dict:
+def _device_rows(prof, wall: float, cell: str, share_of: str = "") -> dict:
     """Device busy time, idle share of ``wall`` and the top kernels of a
-    ``torch.profiler`` run."""
+    ``torch.profiler`` run; with ``share_of``, the device time, launches
+    and share of busy time of the kernels whose name holds it."""
     import torch
     rows = []
     for ev in prof.key_averages():
@@ -1258,12 +1307,19 @@ def _device_rows(prof, wall: float, cell: str) -> dict:
             rows.append((dt, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    return dict(cell=cell, wall_s=wall,
-                device_busy_s=busy if rows else "not measured",
-                idle_share=1.0 - busy / wall if rows else "not measured",
-                device_events=sum(r[1] for r in rows),
-                top=[dict(us=r[0], count=r[1], name=r[2][:80])
-                     for r in rows[:10]])
+    out = dict(cell=cell, wall_s=wall,
+               device_busy_s=busy if rows else "not measured",
+               idle_share=1.0 - busy / wall if rows else "not measured",
+               device_events=sum(r[1] for r in rows),
+               top=[dict(us=r[0], count=r[1], name=r[2][:80])
+                    for r in rows[:10]])
+    if share_of:
+        mine = [r for r in rows if share_of in r[2]]
+        us = sum(r[0] for r in mine)
+        out[share_of] = dict(
+            us=us, count=sum(r[1] for r in mine),
+            share_of_busy=us / 1e6 / busy if rows else "not measured")
+    return out
 
 
 def serve(arch: str, dev, done, walk, walk_dec=None) -> tuple:

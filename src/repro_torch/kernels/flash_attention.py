@@ -3,14 +3,20 @@ sliding-window masks from explicit positions and a logit softcap.
 
 q is (B, S, H, hd), k and v are (B, T, KV, hd); query head ``h`` reads
 KV head ``h // (H // KV)``; ``q_pos`` (S,) and ``k_pos`` (T,) are the
-tokens' positions.  :func:`flash_attention` launches the hand-written
-CUDA kernel ``csrc/flash_attention.cu`` (which replaces the Pallas TPU
+tokens' positions.  :func:`flash_attention` launches a hand-written CUDA
+kernel of ``csrc/flash_attention.cu`` (which replaces the Pallas TPU
 kernel ``flash_attention_fwd`` of the reference's
 ``kernels/flash_attention.py``) on CUDA tensors, and runs
 :func:`flash_attention_ref`, the plain PyTorch version (the reference's
 ``attention_reference``: full score matrix, masks as a -1e30 bias,
 probabilities cast to v's dtype), on CPU tensors.  A CUDA tensor
-launches the kernel or raises.
+launches a kernel or raises.
+
+Which kernel (:func:`route`) follows from the inputs alone, before any
+launch: bf16 at a head dim of :data:`TC_HEAD_DIMS` whose q, k and v TMA
+can address (16-byte aligned pointers, every stride a multiple of 8
+elements) goes to the tensor-core kernel; everything else (f32, hd 256,
+and bf16 that TMA cannot address) to the FMA kernel.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ import torch
 
 #: additive mask value of the reference (never -inf: see the kernel source)
 NEG_INF = -1e30
-#: head dims the CUDA kernel is built for
+#: head dims the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (64, 112, 128, 256)
+#: head dims of the tensor-core kernel (bf16 only)
+TC_HEAD_DIMS = (64, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -98,17 +106,61 @@ def _check(q, k, v, q_pos, k_pos, window) -> None:
         raise ValueError("flash_attention: tensors on more than one device")
 
 
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 12
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
+
+
 @functools.cache
-def _launcher():
-    """The kernel's C entry point, built and typed once, on first use."""
+def _lib() -> ctypes.CDLL:
+    """The kernels' library, built and its entry points typed once, on
+    first use."""
     from repro_torch.kernels import _build
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_int64] * 12
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("flash_attention")
+    for fn in (lib.flash_attention_launch, lib.flash_attention_tc_launch):
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.flash_attention_info.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_info.restype = ctypes.c_int
+    return lib
+
+
+def _tma_ok(x: torch.Tensor) -> bool:
+    """TMA can address ``x``: a 16-byte aligned pointer, and the stride of
+    every dimension longer than 1 a multiple of 8 elements (16 bytes)."""
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or st % 8 == 0 for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call runs: ``"tc"`` (tensor cores) for bf16 at a
+    head dim of :data:`TC_HEAD_DIMS` with q, k and v TMA can address,
+    else ``"fma"``."""
+    if (q.dtype == torch.bfloat16 and q.shape[3] in TC_HEAD_DIMS
+            and all(_tma_ok(x) for x in (q, k, v))):
+        return "tc"
+    return "fma"
+
+
+def _strides(x: torch.Tensor) -> tuple:
+    """x's first three strides; a dimension of length 1 is only ever read
+    at 0, so its stride is rounded up to a multiple of 8, as TMA wants."""
+    return tuple(st if n > 1 else max(8, -(-st // 8) * 8)
+                 for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def kernel_info(kernel_route: str, dtype: torch.dtype, hd: int) -> dict:
+    """What the compiler and the occupancy API report for the kernel that
+    ``kernel_route`` (``"tc"`` or ``"fma"``) runs at ``dtype`` and ``hd``
+    (needs a CUDA device)."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().flash_attention_info(int(kernel_route == "tc"),
+                                      _DTYPE_CODE[dtype], hd, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel_info failed ({err})")
+    return dict(registers=out[0], ctas_per_sm=out[1], smem_bytes=out[2],
+                threads=out[3], local_bytes=out[4])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,8 +174,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v float32 or bfloat16 (all one dtype) with the head dim
     contiguous, any other strides; positions integer, increasing.  On
     CUDA (the current device) hd must be one of :data:`KERNEL_HEAD_DIMS`
-    and B*H at most 65535; positions are cast to int32 here, once per
-    call (a no-op when the caller already holds int32)."""
+    and B*H at most 65535; :func:`route` picks the kernel; positions are
+    cast to int32 here, once per call (a no-op when the caller already
+    holds int32)."""
     _check(q, k, v, q_pos, k_pos, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
@@ -143,22 +196,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: B*H = {B * H} > 65535")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    tc = route(q, k, v) == "tc"
     scale = (hd ** -0.5) if scale is None else scale
     qp = q_pos.to(torch.int32).contiguous()
     kp = k_pos.to(torch.int32).contiguous()
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    err = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-        kp.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, S, T, H, KV,
-        hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], float(scale), float(logit_cap), int(causal),
-        int(window), torch.cuda.current_stream().cuda_stream)
+    lib = _lib()
+    fn = lib.flash_attention_tc_launch if tc else lib.flash_attention_launch
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+             kp.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, S, T, H,
+             KV, hd, *_strides(q), *_strides(k), *_strides(v),
+             *out.stride()[:3], float(scale), float(logit_cap), int(causal),
+             int(window), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed "
-                           f"(cudaGetLastError {err})")
+        raise RuntimeError(f"flash_attention: {'tensor-core' if tc else 'FMA'}"
+                           f" kernel launch failed (error {err})")
     flash_attention.launches += 1
+    if tc:
+        flash_attention.tc_launches += 1
     return out
 
 
-#: kernel launches so far (CPU calls run the plain version and do not count)
+#: kernel launches so far, both routes (CPU calls run the plain version and
+#: do not count)
 flash_attention.launches = 0  # type: ignore[attr-defined]
+#: of those, launches of the tensor-core kernel
+flash_attention.tc_launches = 0  # type: ignore[attr-defined]

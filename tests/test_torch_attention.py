@@ -7,8 +7,12 @@
   2e-2, window/softcap and non-causal 3e-5);
 * the layers in f32 at 1e-5;
 * the wrapper's contract: CPU calls do not count launches, inputs the
-  kernel does not take raise; the CUDA kernel against its plain version
-  (``gpu`` marker, skipped without a card).
+  kernel does not take raise, the route rule; the CUDA kernels against
+  their plain version (``gpu`` marker, skipped without a card);
+* the tensor-core kernel's rounding (bf16 operands, f32 accumulation, P
+  split into two bf16 halves), emulated tile by tile in plain PyTorch,
+  against the reference's Pallas kernel in f32 within the row limit the
+  card's check applies, and bf16-only P shown to miss that limit.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -132,6 +136,131 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         fa.flash_attention(q, k, v, qp, kp, **kw)
 
 
+# ---------------------------- the tensor-core kernel's rounding -----------------
+
+#: the row limit of the card's check (``chip_smoke._hold_rows``): twice one
+#: bf16 rounding of the output plus 1e-4 of the row's RMS
+ROW_ULP, ROW_ATOL = 2.0 ** -7, 1e-4
+LOG2E = 1.4426950408889634
+
+
+def _row_limit_used(got, want32):
+    """The largest share of the row limit ``got`` uses against the f32
+    ``want32`` (torch tensors, (..., hd))."""
+    rms = want32.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = (got.float() - want32).abs()
+    return (diff / (ROW_ULP * want32.abs() + ROW_ATOL * rms)).max().item()
+
+
+def _emulate_tc(q, k, v, q_pos, k_pos, *, causal, window, cap, split,
+                rows=64, keys=64):
+    """The tensor-core kernel's arithmetic in plain PyTorch: each 64-row
+    query tile of a (batch, head) walks the 64-key tiles it sees; scores
+    from the bf16 values with f32 sums, scaled in f32, in log2 units;
+    the online softmax in f32; P·V as P_hi·V + P_lo·V with P_hi = bf16(P)
+    and P_lo = bf16(P - P_hi) (only P_hi when ``split`` is False), summed
+    in f32; the output rounded to bf16."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = hd ** -0.5
+    neg = torch.tensor(-1e30)
+    out = torch.empty(B, S, H, hd)
+    for b in range(B):
+        for h in range(H):
+            Q, K, V = q[b, :, h].float(), k[b, :, h // G].float(), \
+                v[b, :, h // G].float()
+            for r0 in range(0, S, rows):
+                qr, qp = Q[r0:r0 + rows], q_pos[r0:r0 + rows]
+                m = torch.full((qr.shape[0],), -1e30)
+                l = torch.zeros(qr.shape[0])
+                acc = torch.zeros(qr.shape[0], hd)
+                for k0 in range(0, K.shape[0], keys):
+                    kp, vt = k_pos[k0:k0 + keys], V[k0:k0 + keys]
+                    if causal and not kp[0] <= qp[-1]:
+                        continue
+                    if window and not kp[-1] > qp[0] - window:
+                        continue
+                    s = qr @ K[k0:k0 + keys].T
+                    s = (cap * torch.tanh(s * scale / cap) * LOG2E if cap
+                         else s * (scale * LOG2E))
+                    ok = torch.ones_like(s, dtype=torch.bool)
+                    if causal:
+                        ok &= qp[:, None] >= kp[None, :]
+                    if window:
+                        ok &= (qp[:, None] - kp[None, :]) < window
+                    s = torch.where(ok, s, neg)
+                    m_new = torch.maximum(m, s.max(-1).values)
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(s - m_new[:, None])
+                    hi = p.to(torch.bfloat16).float()
+                    acc = acc * corr[:, None] + hi @ vt
+                    if split:
+                        acc = acc + (p - hi).to(torch.bfloat16).float() @ vt
+                    l = l * corr + p.sum(-1)
+                    m = m_new
+                out[b, r0:r0 + rows, h] = acc / l.clamp_min(1e-30)[:, None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,cap", [
+    (1, 256, 4, 2, 64, True, 0, 0.0),      # GQA
+    (1, 256, 2, 2, 128, True, 0, 0.0),     # granite's head dim
+    (1, 200, 4, 1, 112, True, 64, 30.0),   # zamba2's, MQA, ragged, window
+    (1, 128, 2, 2, 64, False, 0, 0.0),     # non-causal
+])
+def test_tensor_core_rounding_against_pallas_in_f32(B, S, H, KV, hd, causal,
+                                                    window, cap, split):
+    """The tensor-core kernel's rounding on bf16 inputs, emulated, against
+    the reference's Pallas kernel in interpret mode on the same values in
+    f32 (the function the TPU kernel computes: f32 scores, f32 P·V): with
+    P split into two bf16 halves it stays within the row limit, using
+    under 0.5 of it, as the output's own rounding does; with bf16 P alone
+    it goes far over (tens of times the limit), which is why the kernel
+    splits P."""
+    arrays = [a.astype(np.float32) for a in _qkv(B, S, S, H, KV, hd)]
+    _, (q, k, v) = _both(arrays, "bfloat16")
+    pos = np.arange(S, dtype=np.int32)
+    blk = 64 if S % 64 == 0 else S
+    want = jops.flash_attention(
+        *(jnp.asarray(x.float().numpy()) for x in (q, k, v)),
+        jnp.asarray(pos), jnp.asarray(pos), causal=causal, window=window,
+        logit_cap=cap, block_q=blk, block_k=blk)
+    want32 = torch.from_numpy(np.array(want, np.float32))
+    tp = torch.from_numpy(pos)
+    got = _emulate_tc(q, k, v, tp, tp, causal=causal, window=window, cap=cap,
+                      split=split)
+    used = _row_limit_used(got, want32)
+    if split:
+        assert used < 0.5, used
+    else:
+        assert used > 10.0, used
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 hd128", "tc"), ("bf16 hd64", "tc"), ("bf16 hd112", "tc"),
+    ("f32", "fma"), ("bf16 hd256", "fma"), ("pointer", "fma"),
+    ("stride", "fma"), ("length-1 head axis", "tc")])
+def test_route_follows_dtype_head_dim_and_alignment(case, want):
+    """The wrapper's rule, decided from the inputs alone: bf16 at hd 64,
+    112 or 128 whose q, k, v TMA can address runs on the tensor cores,
+    anything else on the FMA kernel."""
+    hd = {"bf16 hd64": 64, "bf16 hd112": 112, "bf16 hd256": 256}.get(case, 128)
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    H = 1 if case == "length-1 head axis" else 4
+    q = torch.zeros(2, 16, H, hd, dtype=dtype)
+    k = v = torch.zeros(2, 16, 1 if H == 1 else 2, hd, dtype=dtype)
+    if case == "pointer":
+        q = torch.zeros(2 * 16 * H * hd + 1, dtype=dtype)[1:].view(2, 16, H, hd)
+    elif case == "stride":
+        q = torch.zeros(2, 16, H, hd + 4, dtype=dtype)[..., :hd]
+    elif case == "length-1 head axis":
+        # a length-1 axis is only read at 0: its stride does not matter
+        q = torch.zeros(2 * 16 * hd, dtype=dtype).as_strided(
+            (2, 16, 1, hd), (16 * hd, hd, 3, 1))
+    assert fa.route(q, k, v) == want
+
+
 # ---------------------------- layers ------------------------------------------
 
 def test_rmsnorm_and_rope_match_reference():
@@ -232,3 +361,67 @@ def test_kernel_matches_plain_version_on_gpu(dtype, B, S, T, H, KV, hd,
     tol = (dict(rtol=3e-5, atol=3e-5) if dtype == "float32" and (window or cap)
            else _tol(dtype))
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window,cap", [
+    (2, 512, 512, 8, 2, 64, True, 0, 0.0),      # hd 64, GQA
+    (2, 384, 384, 4, 4, 112, True, 0, 0.0),     # zamba2's head dim
+    (1, 640, 640, 8, 2, 128, True, 0, 0.0),     # granite's
+    (1, 300, 300, 4, 2, 128, True, 0, 0.0),     # ragged S
+    (2, 256, 256, 8, 1, 128, True, 0, 0.0),     # MQA
+    (1, 520, 520, 4, 2, 112, True, 200, 30.0),  # window and softcap
+    (2, 200, 330, 4, 2, 64, False, 0, 0.0),     # non-causal, S != T
+])
+def test_tensor_core_route_on_gpu(B, S, T, H, KV, hd, causal, window, cap):
+    """bf16 at hd 64/112/128 runs the tensor-core kernel (one launch,
+    counted in ``tc_launches``) and holds the card's checks: the plain
+    version in bf16 at 2e-2, and the plain version in f32 on the same
+    values within the row limit."""
+    _needs_card()
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+               for a in _qkv(B, S, T, H, KV, hd))
+    qp = torch.arange(T - S, T, device="cuda", dtype=torch.int32)
+    kp = torch.arange(T, device="cuda", dtype=torch.int32)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    assert fa.route(q, k, v) == "tc"
+    n, n_tc = fa.flash_attention.launches, fa.flash_attention.tc_launches
+    got = fa.flash_attention(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    assert fa.flash_attention.tc_launches == n_tc + 1
+    want = fa.flash_attention_ref(q, k, v, qp, kp, **kw)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
+                               **_tol("bfloat16"))
+    want32 = fa.flash_attention_ref(q.float(), k.float(), v.float(), qp, kp,
+                                    **kw)
+    assert _row_limit_used(got.cpu(), want32.cpu()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_misaligned_bf16_operand_takes_the_fma_route_on_gpu():
+    """A bf16 operand that TMA cannot address (a pointer off 16 bytes)
+    runs on the FMA kernel, as the route rule says: one launch, none on
+    the tensor cores, and the same answer."""
+    _needs_card()
+    B, S, H, KV, hd = 1, 256, 4, 2, 128
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+               for a in _qkv(B, S, S, H, KV, hd))
+    buf = torch.empty(q.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    q_off = buf[1:].view(q.shape)
+    q_off.copy_(q)
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)
+    assert fa.route(q_off, k, v) == "fma"
+    n, n_tc = fa.flash_attention.launches, fa.flash_attention.tc_launches
+    got = fa.flash_attention(q_off, k, v, pos, pos)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    assert fa.flash_attention.tc_launches == n_tc
+    np.testing.assert_allclose(
+        _np(got.cpu()), _np(fa.flash_attention_ref(q, k, v, pos, pos).cpu()),
+        **_tol("bfloat16"))
