@@ -47,11 +47,16 @@
 //   the same V tile into one f32 accumulator: P keeps about 2^-17 of
 //   relative precision, where bf16 alone (2^-9) would miss the f32
 //   reference by far more than the output's own rounding.  l sums the f32
-//   P.  hd 112 is staged as 128 columns whose last 16 are zero (TMA fills
-//   them), Q.K^T runs 7 of the 8 k-steps, and only 112 columns are stored.
-//   Shared memory: Q (128 x HDP) and STAGES x (K and V, 64 x HDP) in bf16,
-//   in 128-byte swizzled 64-column slabs, 128 KB at HDP = 128 with 3 stages:
-//   one CTA an SM, two consumer warpgroups.
+//   P.  Two overlaps keep the tensor cores fed: a warpgroup issues a tile's
+//   Q.K^T together with the previous tile's P.V, and the two warpgroups
+//   take turns (two named barriers), so one's softmax runs while the
+//   other's products do.  hd 112 runs the hd-128 kernel: TMA fills the
+//   last 16 columns with zeros and only 112 columns are stored.  Shared
+//   memory: Q (128 x 128) and STAGES = 4 x (K and V, 64 x 128) in bf16, in
+//   128-byte swizzled 64-column slabs, 161 KB.  Registers: at 288 threads
+//   the compiler caps a thread at 168 (the S, P and O tiles take 128 of
+//   them), so Q stays in shared memory and KV tiles are 64 keys; one CTA
+//   an SM.
 // * `flash_fwd_kernel`, f32 at any hd and bf16 at hd 256 (and bf16 whose
 //   pointers or strides TMA cannot take): plain f32 FMA on the CUDA cores.
 //   One CTA of 256 threads owns a 64-row query tile and loops over 64-row
@@ -73,6 +78,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -369,7 +376,7 @@ constexpr int WG_ROWS = 64;                  // query rows a consumer warpgroup
 constexpr int CONSUMERS = 2;                 // consumer warpgroups a CTA
 constexpr int BQ = WG_ROWS * CONSUMERS;      // query rows a CTA
 constexpr int BK = 64;                       // keys a KV tile
-constexpr int STAGES = 3;                    // K/V ring slots
+constexpr int STAGES = 4;                    // K/V ring slots
 constexpr int PRODUCER_WARP = 4 * CONSUMERS;
 constexpr int THREADS = 32 * (PRODUCER_WARP + 1);
 constexpr int SLAB = 64;                     // columns of one swizzled slab
@@ -380,23 +387,37 @@ struct Args {
   const int* qpos;
   const int* kpos;
   __nv_bfloat16* o;
-  int S, T, H, KV;
+  int S, T, H, KV, hd;
   int64_t o_sb, o_ss, o_sh;
   float scale, cap;
   int causal, window;
 };
 
-// the head dim as staged: 64 or 128 columns
-template <int HD>
-__host__ __device__ constexpr int padded() {
-  return HD <= 64 ? 64 : 128;
-}
-
-template <int HD>
+// shared memory of a kernel staging HDP (64 or 128) columns of the head dim
+template <int HDP>
 constexpr size_t smem_bytes() {
   // + 1024 to align the tiles to the 1024-byte swizzle pattern, + barriers
-  return (size_t)(BQ + 2 * STAGES * BK) * padded<HD>() * 2 + 1024 +
+  return (size_t)(BQ + 2 * STAGES * BK) * HDP * 2 + 1024 +
          8 * (1 + 2 * STAGES);
+}
+
+// 2^x and 1/x on the special-function unit, with no branch (a branch the
+// compiler cannot prove uniform, while a wgmma is in flight, makes it
+// serialize every wgmma of the kernel)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// tanh(y) = 1 - 2 / (e^2y + 1): exact at both ends (e^2y overflows to inf
+// or flushes to 0), within a few f32 ulps of 1 in between
+__device__ __forceinline__ float tanh_nb(float y) {
+  return 1.f - 2.f * rcp(ex2(2.f * LOG2E * y) + 1.f);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -408,16 +429,25 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
                "r"(count));
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
+// the arrivals and copies below are predicated inside the instruction, not
+// branched around: a branch that the compiler cannot prove uniform, while
+// a wgmma is in flight, makes it serialize every wgmma of the kernel
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes,
+                                               bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes), "r"((int)pred)
+      : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"((int)pred)
+      : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try(uint32_t bar, int phase) {
@@ -446,15 +476,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
 }
 
 // one TMA box of a 4-D tensor map (coordinates innermost first) into shared
-// memory, completion counted in bytes on `bar`
+// memory, completion counted in bytes on `bar`; issued where `pred`
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int c0, int c1, int c2,
-                                         int c3) {
+                                         int c3, bool pred) {
   asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_"
-      "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"(
+          smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
+      "r"(c3), "r"((int)pred)
       : "memory");
 }
 
@@ -473,8 +505,10 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keep the compiler from moving accesses of wgmma registers across the
 // asynchronous instructions
@@ -482,11 +516,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D (64 x 64, f32) += A (64 x 16, smem) * B (16 x 64, smem, K-major)
@@ -571,13 +600,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (64 x N) += P (registers) V (smem, N-major)
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64)
     wgmma_rs_n64(d, a, db);
   else
     wgmma_rs_n128(d, a, db);
+}
+
+// named barriers of the two consumer warpgroups' turns at the tensor cores
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(2 * 128) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(2 * 128) : "memory");
 }
 
 // every key of a tile lies at or before the rows' last position (causal)
@@ -591,16 +629,17 @@ __device__ __forceinline__ bool tile_visible(const Args& a, int k0, int qf,
   return vis;
 }
 
-template <int HD>
+// HDP: the head dim as staged, 64 or 128 columns (hd 112 runs the 128
+// kernel: TMA fills its last 16 columns with zeros, a.hd bounds the store)
+template <int HDP>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const Args a) {
-  constexpr int HDP = padded<HD>();
   constexpr int NSLAB = HDP / SLAB;
   constexpr int Q_BYTES = BQ * HDP * 2;
   constexpr int KV_BYTES = BK * HDP * 2;  // one K or V tile
-  constexpr int QK_STEPS = (HD + 15) / 16;
+  constexpr int QK_STEPS = HDP / 16;
   constexpr int NS = BK / 8;     // n8 blocks of the score tile
   constexpr int NO = HDP / 8;    // n8 blocks of the output tile
   extern __shared__ uint8_t smem_raw[];
@@ -613,7 +652,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  // warp and warpgroup through a shuffle, so the compiler sees them (and
+  // every branch on them) as uniform across the warp
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const int wg = warp >> 2;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
   const int kvh = h / (a.H / a.KV);
@@ -632,23 +674,24 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
-  if (warp == PRODUCER_WARP) {
+  if (warp == PRODUCER_WARP) {  // one thread loads
     if (lane == 0) {
-      mbar_expect_tx(q_full, Q_BYTES);
+      mbar_expect_tx(q_full, Q_BYTES, true);
       for (int c = 0; c < NSLAB; ++c)
-        tma_load(Qs + c * BQ * ROW_BYTES, &tq, q_full, c * SLAB, q0, h, b);
+        tma_load(Qs + c * BQ * ROW_BYTES, &tq, q_full, c * SLAB, q0, h, b,
+                 true);
       int it = 0;
       for (int kt = 0; kt < nk; ++kt) {
         if (!tile_visible(a, kt * BK, q_first, q_last)) continue;
         const int s = it % STAGES;
         // the slot's previous round released (passes at once in round 0)
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * KV_BYTES);
+        mbar_expect_tx(&full[s], 2 * KV_BYTES, true);
         for (int c = 0; c < NSLAB; ++c) {
           tma_load(Ks + s * KV_BYTES + c * BK * ROW_BYTES, &tk, &full[s],
-                   c * SLAB, kt * BK, kvh, b);
+                   c * SLAB, kt * BK, kvh, b, true);
           tma_load(Vs + s * KV_BYTES + c * BK * ROW_BYTES, &tv, &full[s],
-                   c * SLAB, kt * BK, kvh, b);
+                   c * SLAB, kt * BK, kvh, b, true);
         }
         ++it;
       }
@@ -658,7 +701,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // consumer warpgroup `wg`: rows q0 + 64 wg .. + 63.  A thread holds rows
   // r0 and r0 + 8 of them, columns 8 j + c2 and + 1 of every n8 block j
-  const int wg = warp >> 2;
   const int r0 = (warp & 3) * 16 + (lane >> 2);
   const int c2 = (lane & 3) * 2;
   const int w0 = q0 + wg * WG_ROWS;
@@ -669,129 +711,205 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int qp0 = a.qpos[min(w0 + r0, a.S - 1)];
   const int qp1 = a.qpos[min(w0 + r0 + 8, a.S - 1)];
   const float sl2 = a.scale * LOG2E;
+  const uint32_t q_base = smem_u32(Qs) + wg * WG_ROWS * ROW_BYTES;
+  int n_vis = 0;  // the CTA's visible KV tiles
+  for (int kt = 0; kt < nk; ++kt)
+    n_vis += tile_visible(a, kt * BK, q_first, q_last);
 
   float o[NO * 4];
 #pragma unroll
   for (int i = 0; i < NO * 4; ++i) o[i] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l: this thread's share
+  // the previous visible tile: its P, its slot, and the rescale of O that
+  // goes with it.  Its P.V is issued together with the next tile's Q.K^T.
+  uint32_t phi[NS * 2], plo[NS * 2];
+  float corr0 = 1.f, corr1 = 1.f;
+  int s_prev = 0;
+  bool has_prev = false;
 
+  // Between a wgmma's issue and its wait no branch may depend on data (the
+  // compiler would then serialize every wgmma): each step below issues,
+  // passes the turn, waits and runs the softmax without one, and the
+  // choices (pending P.V or not, masks or not) are made before it starts.
+
+  // O = O * corr before the previous tile's P.V is added (with no wgmma in
+  // flight: the compiler would otherwise wait for every one first)
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO * 4; ++i) o[i] *= (i & 2) ? corr1 : corr0;
+    fence_regs(o);
+  };
+  // O += P_hi V + P_lo V for the previous tile, committed
+  auto issue_pv = [&]() {
+    const uint32_t v_base = smem_u32(Vs + s_prev * KV_BYTES);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // V is N-major (the head dim contiguous): its 64-column slabs
+      // BK * 128 bytes apart, 8-key groups 1024 apart
+      const uint64_t dv = desc(v_base + kk * 16 * ROW_BYTES, BK * ROW_BYTES,
+                               1024);
+      const uint32_t ah[4] = {phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
+                              phi[4 * kk + 3]};
+      const uint32_t al[4] = {plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
+                              plo[4 * kk + 3]};
+      wgmma_pv<HDP>(o, ah, dv);
+      wgmma_pv<HDP>(o, al, dv);
+    }
+    wg_commit();
+  };
+  // once that P.V has completed: its slot is free
+  auto release_prev = [&]() {
+    fence_regs(o);
+    __syncwarp();
+    mbar_arrive(&empty[s_prev], lane == 0);
+    has_prev = false;
+  };
+  // one visible tile in slot s: S = Q K^T, the previous tile's P.V beside
+  // it when PENDING, then the softmax (with the position masks when MASK)
+  // and this tile's P, split into bf16 halves
+  auto step = [&](int s, int k0, auto pending, auto mask) {
+    constexpr bool PENDING = decltype(pending)::value;
+    constexpr bool MASK = decltype(mask)::value;
+    turn_wait(1 + wg);
+    if constexpr (PENDING) rescale_o();
+    float sc[NS * 4];  // the first k-step overwrites it (scale-d = 0)
+    const uint32_t k_base = smem_u32(Ks + s * KV_BYTES);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < QK_STEPS; ++kk)
+      wgmma_ss_n64(sc,
+                   desc(q_base + (kk / 4) * BQ * ROW_BYTES + (kk % 4) * 32, 16,
+                        1024),
+                   desc(k_base + (kk / 4) * BK * ROW_BYTES + (kk % 4) * 32, 16,
+                        1024),
+                   kk > 0);
+    wg_commit();
+    if constexpr (PENDING) issue_pv();
+    turn_pass(2 - wg);
+    wg_wait<PENDING ? 1 : 0>();
+    fence_regs(sc);
+
+    // scores in log2 units, masks as selects, online softmax
+    const int ncols = min(BK, a.T - k0);
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e];
+        x = a.cap > 0.f ? a.cap * tanh_nb(x * a.scale / a.cap) * LOG2E
+                        : x * sl2;
+        if constexpr (MASK) {
+          const int col = 8 * j + c2 + (e & 1);
+          const int kp = a.kpos[min(k0 + col, a.T - 1)];
+          const int qp = (e & 2) ? qp1 : qp0;
+          const bool ok = (!a.causal || qp >= kp) &&
+                          (a.window <= 0 || qp - kp < a.window);
+          // past T: out of the softmax (p = 0); masked: -1e30
+          x = col < ncols ? (ok ? x : NEG) : -INFINITY;
+        }
+        sc[4 * j + e] = x;
+        if (e & 2)
+          mx1 = fmaxf(mx1, x);
+        else
+          mx0 = fmaxf(mx0, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS * 4; ++i) {
+      sc[i] = ex2(sc[i] - ((i & 2) ? mn1 : mn0));
+      if (i & 2)
+        ps1 += sc[i];
+      else
+        ps0 += sc[i];
+    }
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+    if constexpr (PENDING) {
+      wg_wait<0>();
+      release_prev();
+    }
+    // P in f32, split into two bf16 halves packed as the A operand of the
+    // next P.V: elements 2i and 2i + 1 (row r0 + 8 where i is odd)
+#pragma unroll
+    for (int i = 0; i < NS * 2; ++i) {
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[2 * i], sc[2 * i + 1]);
+      const float2 hf = __bfloat1622float2(hi);
+      const __nv_bfloat162 lo =
+          __floats2bfloat162_rn(sc[2 * i] - hf.x, sc[2 * i + 1] - hf.y);
+      phi[i] = *reinterpret_cast<const uint32_t*>(&hi);
+      plo[i] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
+    corr0 = c0;
+    corr1 = c1;
+    s_prev = s;
+    has_prev = true;
+  };
+
+  // The two warpgroups take turns at the tensor cores: each issues its
+  // products for a tile in its turn, then passes the turn and runs its
+  // softmax while the other's products run.  Warpgroup 0 goes first; every
+  // tile of the CTA is a turn of both, and warpgroup 0 takes the last pass
+  // after its loop, so the arrivals pair up.
   mbar_wait(q_full, 0);
-  const uint32_t q_base = smem_u32(Qs) + wg * WG_ROWS * ROW_BYTES;
-  int it = 0;
-  for (int kt = 0; kt < nk; ++kt) {
+  if (wg == 1 && n_vis > 0) turn_pass(1);
+  int kt = 0;
+  for (int it = 0; it < n_vis; ++it, ++kt) {
+    while (!tile_visible(a, kt * BK, q_first, q_last)) ++kt;
     const int k0 = kt * BK;
-    if (!tile_visible(a, k0, q_first, q_last)) continue;
     const int s = it % STAGES;
     mbar_wait(&full[s], (it / STAGES) & 1);
-    ++it;
-    if (active && tile_visible(a, k0, wq_first, wq_last)) {
-      const int ncols = min(BK, a.T - k0);
-      // S = Q K^T: A and B K-major 128-byte swizzled slabs
-      float sc[NS * 4];
-#pragma unroll
-      for (int i = 0; i < NS * 4; ++i) sc[i] = 0.f;
-      const uint32_t k_base = smem_u32(Ks + s * KV_BYTES);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < QK_STEPS; ++kk) {
-        const uint32_t off = (kk & 3) * 32;
-        wgmma_ss_n64(sc,
-                     desc(q_base + (kk >> 2) * BQ * ROW_BYTES + off, 16, 1024),
-                     desc(k_base + (kk >> 2) * BK * ROW_BYTES + off, 16, 1024),
-                     kk > 0);
+    if (!(active && tile_visible(a, k0, wq_first, wq_last))) {
+      // nothing for these rows: finish the previous tile, free this slot
+      turn_wait(1 + wg);
+      if (has_prev) {
+        rescale_o();
+        issue_pv();
+        turn_pass(2 - wg);
+        wg_wait<0>();
+        release_prev();
+      } else {
+        turn_pass(2 - wg);
       }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(sc);
-
-      // scores in log2 units, masks, online softmax
-      bool need_mask = ncols < BK;
-      if (a.causal) need_mask |= a.kpos[k0 + ncols - 1] > wq_first;
-      if (a.window > 0) need_mask |= wq_last - a.kpos[k0] >= a.window;
-      float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[4 * j + e];
-          x = a.cap > 0.f ? a.cap * tanhf(x * a.scale / a.cap) * LOG2E
-                          : x * sl2;
-          if (need_mask) {
-            const int col = 8 * j + c2 + (e & 1);
-            if (col >= ncols) {
-              x = -INFINITY;  // past T: out of the softmax (p = 0)
-            } else {
-              const int kp = a.kpos[k0 + col];
-              const int qp = (e & 2) ? qp1 : qp0;
-              bool ok = true;
-              if (a.causal) ok = ok && qp >= kp;
-              if (a.window > 0) ok = ok && qp - kp < a.window;
-              if (!ok) x = NEG;
-            }
-          }
-          sc[4 * j + e] = x;
-          if (e & 2)
-            mx1 = fmaxf(mx1, x);
-          else
-            mx0 = fmaxf(mx0, x);
-        }
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      // P in f32, split into two bf16 halves packed as the A operand
-      uint32_t phi[NS * 2], plo[NS * 2];
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < NS * 2; ++i) {
-        const bool lower = (i & 1) != 0;  // elements 4j+2, 4j+3: row r0 + 8
-        const float m = lower ? mn1 : mn0;
-        const float p0 = exp2f(sc[2 * i] - m), p1 = exp2f(sc[2 * i + 1] - m);
-        if (lower)
-          ps1 += p0 + p1;
-        else
-          ps0 += p0 + p1;
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        const float2 hf = __bfloat1622float2(hi);
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-        phi[i] = *reinterpret_cast<const uint32_t*>(&hi);
-        plo[i] = *reinterpret_cast<const uint32_t*>(&lo);
-      }
-      l0 = l0 * corr0 + ps0;
-      l1 = l1 * corr1 + ps1;
-#pragma unroll
-      for (int i = 0; i < NO * 4; ++i) o[i] *= (i & 2) ? corr1 : corr0;
-
-      // O += P_hi V + P_lo V: V is N-major (the head dim contiguous), its
-      // 64-column slabs BK * 128 bytes apart, 8-key groups 1024 apart
-      const uint32_t v_base = smem_u32(Vs + s * KV_BYTES);
-      fence_regs(phi);
-      fence_regs(plo);
-      fence_regs(o);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t dv = desc(v_base + kk * 16 * ROW_BYTES, BK * ROW_BYTES,
-                                 1024);
-        const uint32_t ah[4] = {phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
-                                phi[4 * kk + 3]};
-        const uint32_t al[4] = {plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
-                                plo[4 * kk + 3]};
-        wgmma_rs<HDP>(o, ah, dv);
-        wgmma_rs<HDP>(o, al, dv);
-      }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(o);
+      __syncwarp();
+      mbar_arrive(&empty[s], lane == 0);
+      continue;
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
+    const int ncols = min(BK, a.T - k0);
+    bool need_mask = ncols < BK;
+    if (a.causal) need_mask |= a.kpos[k0 + ncols - 1] > wq_first;
+    if (a.window > 0) need_mask |= wq_last - a.kpos[k0] >= a.window;
+    using T_ = std::true_type;
+    using F_ = std::false_type;
+    if (has_prev) {
+      if (need_mask)
+        step(s, k0, T_{}, T_{});
+      else
+        step(s, k0, T_{}, F_{});
+    } else {
+      if (need_mask)
+        step(s, k0, F_{}, T_{});
+      else
+        step(s, k0, F_{}, F_{});
+    }
+  }
+  if (wg == 0 && n_vis > 0) turn_wait(1);
+  if (has_prev) {
+    rescale_o();
+    issue_pv();
+    wg_wait<0>();
+    release_prev();
   }
 
   if (!active) return;
@@ -805,7 +923,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
     const int col = 8 * j + c2;
-    if (col >= HD) continue;
+    if (col >= a.hd) continue;
     if (r0 < wrows)
       *reinterpret_cast<__nv_bfloat162*>(og + (int64_t)r0 * a.o_ss + col) =
           __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
@@ -870,16 +988,16 @@ int make_map(CUtensorMap* map, const void* base, int hd, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
-template <int HD>
+template <int HDP>
 int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
            const Args& a, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = smem_bytes<HDP>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + BQ - 1) / BQ, B * a.H);
-  flash_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(q, k, v, a);
+  flash_tc_kernel<HDP><<<grid, THREADS, smem, stream>>>(q, k, v, a);
   return (int)cudaGetLastError();
 }
 
@@ -914,9 +1032,9 @@ int fma_info(int* out) {
   return kernel_info(flash_fwd_kernel<T, HD>, smem_bytes<HD>(), THREADS, out);
 }
 
-template <int HD>
+template <int HDP>
 int tc_info(int* out) {
-  return kernel_info(tc::flash_tc_kernel<HD>, tc::smem_bytes<HD>(),
+  return kernel_info(tc::flash_tc_kernel<HDP>, tc::smem_bytes<HDP>(),
                      tc::THREADS, out);
 }
 
@@ -963,12 +1081,12 @@ extern "C" int flash_attention_tc_launch(
   if (err == 0) err = tc::make_map(&tv, v, hd, T, KV, B, v_st, v_sh, v_sb, tc::BK);
   if (err != 0) return err;
   const tc::Args a{(const int*)q_pos, (const int*)k_pos,
-                   (__nv_bfloat16*)out, S, T, H, KV, o_sb, o_ss, o_sh, scale,
-                   cap, causal, window};
+                   (__nv_bfloat16*)out, S, T, H, KV, hd, o_sb, o_ss, o_sh,
+                   scale, cap, causal, window};
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 64: return tc::launch<64>(tq, tk, tv, a, B, st);
-    case 112: return tc::launch<112>(tq, tk, tv, a, B, st);
+    case 112:
     case 128: return tc::launch<128>(tq, tk, tv, a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -982,7 +1100,7 @@ extern "C" int flash_attention_info(int route, int dtype, int hd, int* out) {
   if (route == 1) {
     switch (hd) {
       case 64: return tc_info<64>(out);
-      case 112: return tc_info<112>(out);
+      case 112:
       case 128: return tc_info<128>(out);
     }
   } else if (dtype == 0 || dtype == 1) {
