@@ -12,7 +12,9 @@ beside its bound and, where one PyTorch call computes the same function,
 that call's time: the pump bitwise; flash attention at the tolerances of
 ``tests/test_kernels.py`` and, row by row, against its plain version in
 float32, on granite-8b's, zamba2-7b's and gemma2-9b's shapes and the edge
-cases; RMSNorm at both models' widths; flash decode on both models' full
+cases, each on the kernel its route rule picks (the tensor-core kernel
+for bf16 at hd 64, 112 and 128), and both kernels timed at granite's and
+zamba2's shapes with the registers and CTAs an SM they get; RMSNorm at both models' widths; flash decode on both models' full
 caches, gemma2's window, ragged positions and one long request, with
 the cache past each position overwritten; the SSD state scan at zamba2's
 prefill and a 32768-token request.  Then the paths, each with every
@@ -25,8 +27,10 @@ kernel's launches counted from 0 just before it and read just after:
 * serving granite-8b at full width and depth (36 layers, random bf16
   weights from a seed), with ``attention_impl="pallas"``: the prefill
   step on 4 requests x 4096 prompt tokens (flash attention once per
-  layer, RMSNorm for every norm), its logits held to the same prefill
-  with each plain attention (reference, blocked); the prefill walked
+  layer, every launch on the tensor-core kernel, RMSNorm for every norm),
+  its logits held to the same prefill with each plain attention
+  (reference, blocked) and its next token to theirs wherever their
+  top-two gap exceeds their spread; the prefill walked
   layer by layer with each attention, the flash kernel checked on every
   layer's own q, k, v and the logits compared by depth; a profile of
   one prefill; ``generate`` (4 requests, 16-token prompts, 16 new tokens,
@@ -40,9 +44,9 @@ kernel's launches counted from 0 just before it and read just after:
 * serving zamba2-7b at full width and depth (81 Mamba2 layers, the
   shared attention block 13 times, random bf16 weights from a seed),
   after granite's memory is freed: the prefill step on 4 x 4096 tokens
-  (flash attention 13 times, the SSD state scan once per Mamba2 layer,
-  RMSNorm for every norm), its logits held to the all-plain path and the
-  blocked one; the SSD kernel held layer by layer to its plain version
+  (flash attention 13 times on the tensor-core kernel, the SSD state scan
+  once per Mamba2 layer, RMSNorm for every norm), its logits and next
+  tokens held as granite's to the all-plain path and the blocked one; the SSD kernel held layer by layer to its plain version
   on the model's own inputs through the first macro-block; a profile of
   one prefill; ``generate``; decode steps against 32 x 4096 and 8 x 16384
   cached tokens with flash decode, each beside one plain step.
