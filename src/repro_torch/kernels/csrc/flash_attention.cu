@@ -934,8 +934,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
-// link against libcuda)
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so the library needs no link against libcuda
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
