@@ -125,6 +125,15 @@ DECODE_CASES = (
     ("zamba2-7b 1x65536", "bfloat16", 1, 65536, 32, 32, 112, 0, 0.0, False),
     ("f32 3x512 ragged", "float32", 3, 512, 8, 2, 64, 0, 0.0, True),
 )
+#: flash decode timed at the serving paths' shapes, every request at its
+#: last position, bf16: (case, B, T, H, KV, hd).  The first is the one in
+#: the kernels line.
+DECODE_SHAPES = (
+    ("granite-8b 128x2048", 128, 2048, 32, 8, 128),
+    ("granite-8b 32x8192", 32, 8192, 32, 8, 128),
+    ("zamba2-7b 32x4096", 32, 4096, 32, 32, 112),
+    ("zamba2-7b 8x16384", 8, 16384, 32, 32, 112),
+)
 #: SSD state scan checks: (case, B, nc, nh, hd, N, Q).  The first
 #: (zamba2-7b's prefill, 4 x 4096 tokens) is timed.
 SSD_CASES = (
@@ -543,20 +552,70 @@ def _decode_visible(pos, T: int, window: int) -> list:
     return out
 
 
+def _decode_grid(B: int, T: int, H: int, KV: int, hd: int, sms: int) -> dict:
+    """The kernel instance's registers, CTAs an SM and spills (compiler
+    and occupancy API), and the grid a call at this shape launches, with
+    the waves it makes on ``sms`` SMs."""
+    from repro_torch.kernels import decode_attention as fd
+    G = H // KV
+    gb = fd.group_block(G)
+    info = fd.kernel_info(hd, gb)
+    n_split = fd.n_splits(B, KV, G, T, sms)
+    ctas = B * KV * -(-G // gb) * n_split
+    return dict(instance=f"<bf16,{hd},{gb}>", **info, splits=n_split,
+                grid=ctas, waves=ctas / (sms * info["ctas_per_sm"]))
+
+
+def _decode_shape(g, dev, sms: int, case: str, B: int, T: int, H: int,
+                  KV: int, hd: int) -> dict:
+    """Flash decode at one serving shape (bf16, full cache): held to its
+    plain version (``_hold_rows``), its time a launch beside one
+    ``scaled_dot_product_attention`` call's on the (B, KV, T, hd) views
+    with a key mask (``enable_gqa``), the bytes bound and the share of the
+    memory rate, and ``_decode_grid``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        flash_decode, flash_decode_ref)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, T, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, T, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
+    held = _hold_rows(flash_decode(q, k, v, pos),
+                      flash_decode_ref(q, k, v, pos),
+                      flash_decode_ref(q.float(), k.float(), v.float(), pos),
+                      _attn_tol("bfloat16", 0, 0.0),
+                      f"flash_decode vs its plain version at {case}")
+    ms = _cuda_ms(lambda: flash_decode(q, k, v, pos), 20)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None, :] <= pos[:, None])[:, None, None]
+    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 5)
+    keys = B * T
+    nbytes = (2 * keys * KV * hd + 2 * q.numel()) * 2 + 4 * B
+    bound = _bound(nbytes, 4 * keys * H * hd, BF16_FLOPS)
+    return dict(case=case, shape=dict(B=B, T=T, H=H, KV=KV, hd=hd), ms=ms,
+                library_ms=library_ms, sdpa_factor=ms / library_ms,
+                memory_share=bound["bytes_ms"] / ms,
+                gb_s=bound["bytes"] / ms / 1e6, **bound,
+                **_decode_grid(B, T, H, KV, hd, sms), **held,
+                tensors=(q, k, v, pos))
+
+
 def check_decode(dev) -> dict:
     """The flash-decode kernel against ``flash_decode_ref`` on the card at
     every ``DECODE_CASES`` shape (``_hold_rows``; ``tests/test_kernels.py``'s
     tolerances), and unchanged, bit for bit, when the cache past each
-    request's position is overwritten with NaN; at the first its time,
-    the plain version's, one ``scaled_dot_product_attention`` call's on
-    the (B, KV, T, hd) views with a key mask, and the bound."""
+    request's position is overwritten with NaN; at every
+    ``DECODE_SHAPES`` shape its time, one SDPA call's, the bound, the
+    share of the memory rate, registers, CTAs an SM and the grid's waves
+    (``_decode_shape``); at the first the plain version's time."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
-        flash_decode, flash_decode_ref, n_splits)
+        flash_decode, flash_decode_ref)
     g = torch.Generator(dev).manual_seed(2)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, timed = [], None
+    rows = []
     for case, dtype, B, T, H, KV, hd, window, cap, ragged in DECODE_CASES:
         td = getattr(torch, dtype)
         q = torch.randn(B, H, hd, generator=g, device=dev).to(td)
@@ -584,32 +643,27 @@ def check_decode(dev) -> dict:
                 raise AssertionError(f"flash_decode on {case}: the output "
                                      f"changed when the cache past pos did")
             del k2, v2
-        rows.append(dict(case=case, splits=n_splits(B, KV, H // KV, T, sms),
-                         past_pos_overwritten=ragged, **r))
-        if timed is None:
-            timed = (q, k, v, pos, kw, r["max_abs_err"])
-        else:
-            del q, k, v
+        rows.append(dict(case=case, past_pos_overwritten=ragged, **r))
+        del q, k, v, got
         torch.cuda.empty_cache()
-    q, k, v, pos, kw, err = timed
-    B, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    ms = _cuda_ms(lambda: flash_decode(q, k, v, pos, **kw), 20)
-    plain_ms = _cuda_ms(lambda: flash_decode_ref(q, k, v, pos, **kw), 3)
-    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(T, device=dev)[None, :] <= pos[:, None])[:, None, None]
-    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), 5)
-    keys = sum(_decode_visible(pos, T, kw["window"]))
-    nbytes = (2 * keys * KV * hd + 2 * q.numel()) * q.element_size() + 4 * B
-    bound = _bound(nbytes, 4 * keys * (H // KV) * KV * hd, BF16_FLOPS)
+    shapes = []
+    for shape in DECODE_SHAPES:
+        row = _decode_shape(g, dev, sms, *shape)
+        q, k, v, pos = row.pop("tensors")
+        if not shapes:
+            plain_ms = _cuda_ms(lambda: flash_decode_ref(q, k, v, pos), 3)
+        shapes.append(row)
+        print("decode shape:", json.dumps(row))
+        del q, k, v, pos
+        torch.cuda.empty_cache()
+    first = shapes[0]
     return dict(name="flash_decode", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/decode_attention.py:68",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound, library_ms=library_ms, cases=rows,
-                shape=dict(B=B, T=T, H=H, KV=KV, hd=hd, dtype=str(q.dtype)),
-                gb_s=bound["bytes"] / ms / 1e6)
+                launches=0, max_abs_err=first["max_abs_err"], ms=first["ms"],
+                plain_ms=plain_ms, bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=first["library_ms"],
+                cases=rows, shapes=shapes)
 
 
 def _ssd_inputs(g, B, nc, nh, hd, N, Q, dev):

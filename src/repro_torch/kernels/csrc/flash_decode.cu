@@ -343,3 +343,47 @@ extern "C" int flash_decode_launch(
   if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, hd, gb, st);
   return (int)cudaErrorInvalidValue;
 }
+
+namespace {
+
+template <typename T, int HD, int GB>
+int info_gb(int* out) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, flash_decode_kernel<T, HD, GB>);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, flash_decode_kernel<T, HD, GB>, THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = at.numRegs;
+  out[1] = ctas;
+  out[2] = (int)at.sharedSizeBytes;
+  out[3] = THREADS;
+  out[4] = (int)at.localSizeBytes;
+  return 0;
+}
+
+template <typename T, int HD>
+int info_hd(int gb, int* out) {
+  switch (gb) {
+    case 1: return info_gb<T, HD, 1>(out);
+    case 2: return info_gb<T, HD, 2>(out);
+    case 4: return info_gb<T, HD, 4>(out);
+    case 8: return info_gb<T, HD, 8>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// out[5]: registers a thread, CTAs an SM (occupancy API), static shared
+// memory, threads, local memory a thread of the bf16 instance at hd and gb
+extern "C" int flash_decode_info(int hd, int gb, int* out) {
+  switch (hd) {
+    case 64: return info_hd<__nv_bfloat16, 64>(gb, out);
+    case 112: return info_hd<__nv_bfloat16, 112>(gb, out);
+    case 128: return info_hd<__nv_bfloat16, 128>(gb, out);
+    case 256: return info_hd<__nv_bfloat16, 256>(gb, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

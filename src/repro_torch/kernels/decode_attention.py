@@ -113,6 +113,22 @@ def _launcher():
     return fn
 
 
+def kernel_info(hd: int, gb: int) -> dict:
+    """What the compiler and the occupancy API report for the bf16
+    instance at ``hd`` and ``gb`` query heads a CTA (needs a CUDA
+    device)."""
+    from repro_torch.kernels import _build
+    fn = _build.load("flash_decode").flash_decode_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(hd, gb, out)
+    if err != 0:
+        raise RuntimeError(f"flash_decode: kernel_info failed ({err})")
+    return dict(registers=out[0], ctas_per_sm=out[1], smem_bytes=out[2],
+                threads=out[3], local_bytes=out[4])
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, pos: torch.Tensor, *,
                  window: int = 0, logit_cap: float = 0.0,
