@@ -16,9 +16,16 @@ cases, each on the kernel its route rule picks (the tensor-core kernel
 for bf16 at hd 64, 112 and 128), and both kernels timed at granite's and
 zamba2's shapes with the registers and CTAs an SM they get; RMSNorm at both models' widths; flash decode on both models' full
 caches, gemma2's window, ragged positions and one long request, with
-the cache past each position overwritten; the SSD state scan at zamba2's
-prefill and a 32768-token request.  Then the paths, each with every
-kernel's launches counted from 0 just before it and read just after:
+the cache past each position overwritten, and at the four serving
+shapes (granite 128 x 2048 and 32 x 8192, zamba2 32 x 4096 and 8 x 16384)
+its time beside SDPA's, the bytes bound, the share of the memory rate,
+the registers, CTAs an SM and waves of its grid (``decode shape:``
+lines); the SSD state scan at zamba2's prefill and a 32768-token
+request, both of its instances (one and two heads a CTA) timed with
+their registers and CTAs an SM beside the bound and the bytes floor.
+Then the paths, each with every kernel's launches counted from 0 just
+before it and read just after (every flash-decode launch on the
+tensor-core kernel):
 
 * the wave path — ``run_many`` at deployment scale (1024x1024
   work-sharing on dts, prs-haproxy and mss, 256x256 feedback on dts,
@@ -227,6 +234,7 @@ def _reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     KERNELS["flash_attention"].tc_launches = 0
+    KERNELS["flash_decode"].tc_launches = 0
 
 
 def _launches() -> dict:
@@ -255,8 +263,16 @@ def _want_launches(cfg, phase: str, steps: int = 1) -> dict:
 
 
 def _check_launches(got: dict, want: dict, what: str) -> None:
+    """The launches are exact, and every flash-decode launch (bf16 at the
+    serving models' head dims) ran the tensor-core kernel."""
+    from repro_torch.kernels import KERNELS
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, want {want}")
+    tc = KERNELS["flash_decode"].tc_launches
+    if tc != got["flash_decode"]:
+        raise AssertionError(f"{what}: {tc} of {got['flash_decode']} "
+                             f"flash-decode launches on the tensor-core "
+                             f"kernel")
 
 
 def _pump_inputs(rng, R: int, P: int, L: int, Np: int, case: str, dev):
@@ -553,17 +569,21 @@ def _decode_visible(pos, T: int, window: int) -> list:
 
 
 def _decode_grid(B: int, T: int, H: int, KV: int, hd: int, sms: int) -> dict:
-    """The kernel instance's registers, CTAs an SM and spills (compiler
-    and occupancy API), and the grid a call at this shape launches, with
-    the waves it makes on ``sms`` SMs."""
+    """The bf16 kernel instance's registers, CTAs an SM and spills
+    (compiler and occupancy API), and the persistent grid a call at this
+    shape launches, with the waves it makes on ``sms`` SMs (1 when the
+    grid is the full wave) and whether its shares cut a unit."""
+    import torch
     from repro_torch.kernels import decode_attention as fd
     G = H // KV
-    gb = fd.group_block(G)
-    info = fd.kernel_info(hd, gb)
-    n_split = fd.n_splits(B, KV, G, T, sms)
-    ctas = B * KV * -(-G // gb) * n_split
-    return dict(instance=f"<bf16,{hd},{gb}>", **info, splits=n_split,
-                grid=ctas, waves=ctas / (sms * info["ctas_per_sm"]))
+    kernel_route = "tc" if hd in fd.TC_HEAD_DIMS else "fma"
+    gb = fd.heads_per_unit(G, kernel_route)
+    info = fd.kernel_info(kernel_route, torch.bfloat16, hd, gb)
+    _, kvu, ctas, cut = fd.plan(B, KV, G, T, hd, kernel_route, sms,
+                                info["ctas_per_sm"])
+    return dict(kernel=kernel_route, gb=gb, kv_heads_per_unit=kvu, **info,
+                grid=ctas, waves=ctas / (sms * info["ctas_per_sm"]),
+                units_cut=cut)
 
 
 def _decode_shape(g, dev, sms: int, case: str, B: int, T: int, H: int,
@@ -692,10 +712,13 @@ def _hold_ssd(got, want, what: str) -> dict:
 
 def check_ssd(dev) -> dict:
     """The SSD state-scan kernel against ``ssd_state_scan_ref`` on the card
-    at every ``SSD_CASES`` shape at ``SSD_TOL``; at the first its time,
-    the plain version's and the bound (no single PyTorch call computes
-    it)."""
+    at every ``SSD_CASES`` shape at ``SSD_TOL``; at the first the time of
+    both instances (one and two heads a CTA; the wrapper's default is the
+    one in the kernels line), each held again and with its registers and
+    CTAs an SM, the plain version's time, the bound (f32 operations) and
+    the design's floor (the bytes; no single PyTorch call computes it)."""
     import torch
+    from repro_torch.kernels import ssm_scan
     from repro_torch.kernels.ssm_scan import ssd_state_scan, ssd_state_scan_ref
     g = torch.Generator(dev).manual_seed(3)
     rows, timed = [], None
@@ -711,8 +734,6 @@ def check_ssd(dev) -> dict:
     args, err = timed
     B, nc, nh, hd, N = args[0].shape
     Q = args[2].shape[2]
-    ms = _cuda_ms(lambda: ssd_state_scan(*args), 20)
-    plain_ms = _cuda_ms(lambda: ssd_state_scan_ref(*args), 3)
     # inputs read once, y and the final state written once; per chunk and
     # head the (Q x N) @ (N x hd) product, its exp(cum) scaling and the
     # state update
@@ -720,11 +741,25 @@ def check_ssd(dev) -> dict:
                   + B * nh * hd * N)
     flops = B * nc * nh * (2 * Q * N * hd + Q * hd + 2 * hd * N)
     bound = _bound(nbytes, flops, F32_FLOPS)
+    want = ssd_state_scan_ref(*args)
+    instances = {}
+    for hpc in (1, 2):
+        ms = _cuda_ms(lambda: ssd_state_scan(*args, heads_per_cta=hpc), 20)
+        held = _hold_ssd(ssd_state_scan(*args, heads_per_cta=hpc), want,
+                         f"{hpc} heads a CTA")
+        instances[hpc] = dict(ms=ms, **ssm_scan.kernel_info(hpc), **held,
+                              bound_share=bound["bound_ms"] / ms,
+                              floor_share=bound["bytes_ms"] / ms)
+    del want
+    plain_ms = _cuda_ms(lambda: ssd_state_scan_ref(*args), 3)
     return dict(name="ssd_state_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_state_scan.cu",
                 replaces="src/repro/kernels/ssm_scan.py:48", launches=0,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
-                library_ms=None, cases=rows,
+                max_abs_err=err,
+                ms=instances[ssm_scan.HEADS_PER_CTA]["ms"],
+                plain_ms=plain_ms, **bound, design_floor_ms=bound["bytes_ms"],
+                library_ms=None, heads_per_cta=ssm_scan.HEADS_PER_CTA,
+                instances=instances, cases=rows,
                 shape=dict(B=B, nc=nc, nh=nh, hd=hd, N=N, Q=Q))
 
 

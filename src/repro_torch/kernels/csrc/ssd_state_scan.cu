@@ -14,31 +14,53 @@
 // and final (B, nh, hd, N) are f32 and contiguous: the JAX layouts, read
 // and written in place.
 //
-// Bound: bytes.  Per chunk and head the work is a (Q x N) @ (N x hd)
+// Bound: operations.  Per chunk and head the work is a (Q x N) @ (N x hd)
 // product, 2 * Q * N * hd flops against the 4 * Q * hd bytes of its output:
-// 32 flops a byte at N = 64, below the f32 ridge point of the card (67
-// TFLOP/s over 3.35 TB/s, 20 flops a byte) once the states and C are
-// counted too, so the least time is the bytes: at zamba2's prefill
-// (B 4, nc 16, nh 112, hd = N = 64, Q 256) about 0.61 GB, 0.18 ms, almost
-// all of it y.  The TPU kernel walks the chunks as a sequential grid
-// dimension with the state in VMEM scratch, after transposing states, cum
-// and y into per-head layouts.  Here one CTA of 256 threads owns one
-// (batch, head) and loops over the chunks itself, the state resident in
-// shared memory (64 x 68 f32, zero-padded to 64 x 64 for smaller hd or N).
-// Per chunk it stages C in 64-row tiles; each thread computes a 4 x 4
-// micro-tile of y (rows ty + 16a, columns tx + 16b), so a warp stores two
-// 64-byte row segments at a time; then every thread updates its share of
-// the state with the chunk's own (hd x N) block, read as contiguous rows.
-// hd and N are at most 64; Q and nc are any size.
+// 32 flops a byte at N = 64, above the card's f32 ridge point (67 TFLOP/s
+// over 3.35 TB/s, 20 flops a byte).  At zamba2's prefill (B 4, nc 16,
+// nh 112, hd = N = 64, Q 256) that is 15.2 GFLOP, 0.227 ms at the f32 FMA
+// peak, against 0.606 GB of bytes (almost all of it y), 0.181 ms.  The
+// products run on the tensor cores as 3xTF32, which puts this design's own
+// floor at the bytes, 0.181 ms: 45.7 GFLOP of TF32 products take 0.092 ms
+// at the 495 TFLOP/s dense TF32 peak.
+//
+// The TPU kernel walks the chunks as a sequential grid dimension with the
+// state in VMEM scratch, after transposing states, cum and y into per-head
+// layouts.  Here a CTA owns HPC heads of one batch and one tile of RT = 64
+// rows of every chunk, and walks the chunks itself: the Q / 64 row tiles of
+// a head are sibling CTAs, each running the head's (cheap) state recurrence
+// itself from `states` and `totals`, which the siblings read from L2, so a
+// head spreads over Q / 64 CTAs (1792 CTAs of 4 warps at zamba2's prefill
+// with HPC = 1); with HPC = 2 the two heads' warps share each staged C tile.
+// Per chunk the CTA stages the C tile, the heads' (hd x N) states blocks and
+// cum rows with `cp.async` into one of two buffers while it computes on the
+// other, so no tile waits on device memory.  Warp w of a head owns the
+// state columns d in [16 (w % 4), 16 (w % 4) + 16) as the B fragments of
+// `mma.sync` m16n8k8 (TF32 in, f32 out), held in registers as an exact
+// hi + lo pair (hi = TF32(s), lo = s - hi), and computes those columns of y
+// for the tile's 64 rows: C's fragments are split the same way as they are
+// read from shared memory (lo = TF32(x - hi), both rounded to nearest),
+// and each product is hi.hi + hi.lo + lo.hi (3xTF32: the dropped lo.lo
+// term and lo's rounding leave about 2^-22 of each product, against 2^-11
+// for one TF32 product, so the sums' f32 rounding dominates as in an f32
+// product).  The tensor cores truncate the sums they accumulate, which on
+// a long running sum adds up past the 1e-5 tolerance, so each k-step's
+// hi.hi is summed from zero and added to the running sum in f32, while the
+// two small terms (2^-11 of it) share one accumulator on the tensor cores.  The chunk's y is scaled by exp(cum) and stored (streaming)
+// straight from the accumulators; then each thread updates its own state
+// elements in f32 from the staged states block.  hd and N are at most 64;
+// Q and nc are any size.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TS = 64;        // state tile: hd and N padded to this
-constexpr int LD = TS + 4;    // row stride of the shared tiles (floats)
-constexpr int THREADS = 256;
+constexpr int TS = 64;      // state tile: hd and N padded to this
+constexpr int RT = 64;      // rows of y a CTA owns in every chunk
+constexpr int LD = TS + 4;  // row stride of the shared tiles (floats)
+constexpr int KSTEPS = TS / 8;
+constexpr int MH = 2;       // m-tiles of 16 rows computed together
 
 struct Args {
   const float* states;
@@ -48,110 +70,350 @@ struct Args {
   float* y;
   float* final_state;
   int B, nc, nh, hd, N, Q;
+  int c_vec, s_vec;  // C / states rows copied as 16-byte vectors
   int64_t s_sb, s_sc, s_sh, s_sd, s_sn;
   int64_t t_sb, t_sc, t_sh;
   int64_t c_sb, c_sc, c_si, c_sn;
   int64_t u_sb, u_sc, u_si, u_sh;
 };
 
-__global__ void __launch_bounds__(THREADS) ssd_state_scan_kernel(const Args a) {
-  __shared__ __align__(16) float S[TS * LD];   // state: row d, column n
-  __shared__ __align__(16) float Cs[TS * LD];  // C tile: row i, column n
-  __shared__ float ecum[TS];                   // exp(cum) of the tile's rows
+// floats of one stage: the C tile, HPC states blocks, HPC cum rows
+template <int HPC>
+struct Stage {
+  static constexpr int C_SZ = RT * LD;
+  static constexpr int S_SZ = TS * LD;
+  static constexpr int SIZE = C_SZ + HPC * S_SZ + HPC * RT;
+  static constexpr int smem_bytes = 2 * SIZE * 4;
+};
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int b = blockIdx.x / a.nh, h = blockIdx.x % a.nh;
-  const int NP = (a.N + 3) & ~3;  // contraction length, zero-padded
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// global -> shared, 16 or 4 bytes; zero-filled (nothing read) unless valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int e = tid; e < TS * LD; e += THREADS) {
-    S[e] = 0.f;
-    Cs[e] = 0.f;
-  }
-  __syncthreads();
+// x rounded to TF32 (nearest, ties away from zero)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
 
+// x = hi + lo exactly, hi = TF32(x); lo as f32 bits (the state keeps it so)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b, m16n8k8, TF32 in, f32 accumulation
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int HPC>
+__global__ void __launch_bounds__(128 * HPC) ssd_state_scan_kernel(const Args a) {
+  constexpr int THREADS = 128 * HPC;
+  using St = Stage<HPC>;
+  extern __shared__ __align__(16) float sm[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int hw = warp >> 2;         // the warp's head within the CTA
+  const int dq = (warp & 3) * 16;   // its first state row (y column)
+  const int n_rt = max(1, (a.Q + RT - 1) / RT);
+  const int hgroups = (a.nh + HPC - 1) / HPC;
+  const int rt = blockIdx.x % n_rt;
+  const int h0 = (blockIdx.x / n_rt) % hgroups * HPC;
+  const int b = blockIdx.x / (n_rt * hgroups);
+  const int h = h0 + hw;
+  const int r0 = rt * RT, rows = min(RT, a.Q - r0);
+  const bool active = h < a.nh && dq < a.hd;  // warp-uniform
+
+  // stage chunk c's C tile, cum rows and states blocks into buffer `buf`;
+  // rows past Q, state rows past hd and columns past N are zero-filled, so
+  // the products below run over whole 64 x 64 tiles without branches
+  auto load = [&](int buf, int c) {
+    float* Cs = sm + buf * St::SIZE;
+    float* Ss = Cs + St::C_SZ;
+    float* Es = Ss + HPC * St::S_SZ;
+    const float* Cc = a.C + b * a.c_sb + c * a.c_sc + (int64_t)r0 * a.c_si;
+    constexpr int w = TS;
+    if (a.c_vec) {
+      for (int e = tid; e < RT * w / 4; e += THREADS) {
+        const int i = e / (w / 4), n = e % (w / 4) * 4;
+        const bool ok = i < rows && n < a.N;
+        cp_async16(Cs + i * LD + n, ok ? Cc + i * a.c_si + n : a.C, ok);
+      }
+    } else {
+      for (int e = tid; e < RT * w; e += THREADS) {
+        const int i = e / w, n = e % w;
+        const bool ok = i < rows && n < a.N;
+        cp_async4(Cs + i * LD + n, ok ? Cc + i * a.c_si + n * a.c_sn : a.C,
+                  ok);
+      }
+    }
+    for (int e = tid; e < HPC * RT; e += THREADS) {
+      const int hh = e / RT, i = e % RT;
+      const bool ok = i < rows && h0 + hh < a.nh;
+      cp_async4(Es + e,
+                ok ? a.cum + b * a.u_sb + c * a.u_sc + (r0 + i) * a.u_si +
+                         (h0 + hh) * a.u_sh
+                   : a.cum,
+                ok);
+    }
+    const float* sc = a.states + b * a.s_sb + c * a.s_sc;
+    if (a.s_vec) {
+      for (int e = tid; e < HPC * TS * w / 4; e += THREADS) {
+        const int hh = e / (TS * w / 4), d = e / (w / 4) % TS,
+                  n = e % (w / 4) * 4;
+        const bool ok = h0 + hh < a.nh && d < a.hd && n < a.N;
+        cp_async16(Ss + hh * St::S_SZ + d * LD + n,
+                   ok ? sc + (h0 + hh) * a.s_sh + d * a.s_sd + n : a.states,
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < HPC * TS * w; e += THREADS) {
+        const int hh = e / (TS * w), d = e / w % TS, n = e % w;
+        const bool ok = h0 + hh < a.nh && d < a.hd && n < a.N;
+        cp_async4(Ss + hh * St::S_SZ + d * LD + n,
+                  ok ? sc + (h0 + hh) * a.s_sh + d * a.s_sd + n * a.s_sn
+                     : a.states,
+                  ok);
+      }
+    }
+  };
+
+  // the warp's state as B fragments: element [kk][j][e] is
+  // s[dq + 8 j + g][8 kk + tig + 4 e], kept as hi + lo (both f32 bits)
+  float shi[KSTEPS][2][2], slo[KSTEPS][2][2];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      shi[kk][j][0] = shi[kk][j][1] = slo[kk][j][0] = slo[kk][j][1] = 0.f;
+
+  load(0, 0);
+  cp_commit();
   for (int c = 0; c < a.nc; ++c) {
-    const float* Cc = a.C + b * a.c_sb + c * a.c_sc;
-    const float* uc = a.cum + b * a.u_sb + c * a.u_sc + h * a.u_sh;
-    float* yc = a.y + (((int64_t)b * a.nc + c) * a.Q * a.nh + h) * a.hd;
-    const int64_t y_si = (int64_t)a.nh * a.hd;  // y's row stride
-    for (int i0 = 0; i0 < a.Q; i0 += TS) {
-      const int rows = min(TS, a.Q - i0);
-      for (int e = tid; e < TS * a.N; e += THREADS) {
-        const int r = e / a.N, n = e % a.N;
-        Cs[r * LD + n] = r < rows ? Cc[(int64_t)(i0 + r) * a.c_si + n * a.c_sn]
-                                  : 0.f;
-      }
-      if (tid < TS) ecum[tid] = tid < rows ? expf(uc[(int64_t)(i0 + tid) * a.u_si])
-                                           : 0.f;
-      __syncthreads();
-      float acc[4][4];
+    if (c + 1 < a.nc) load((c + 1) & 1, c + 1);
+    cp_commit();
+    const float decay =
+        active ? expf(a.totals[b * a.t_sb + c * a.t_sc + h * a.t_sh]) : 0.f;
+    cp_wait<1>();
+    __syncthreads();
+    const float* Cs = sm + (c & 1) * St::SIZE;
+    const float* Ss = Cs + St::C_SZ + hw * St::S_SZ;
+    const float* Es = Cs + St::C_SZ + HPC * St::S_SZ + hw * RT;
+    if (active) {
+      const int64_t y_si = (int64_t)a.nh * a.hd;
+      float* yc = a.y + (((int64_t)b * a.nc + c) * a.Q + r0) * y_si +
+                  (int64_t)h * a.hd;
+      const bool pairs = (a.hd & 1) == 0;
+      // the tile's rows in two halves of MH m-tiles, so that only their
+      // sums and fragments are live at once
+#pragma unroll 1
+      for (int m0 = 0; m0 < RT / 16; m0 += MH) {
+        // y tile: m-tile m0 + mt (rows 16 (m0 + mt) ..), n-tile j (columns
+        // dq + 8 j ..)
+        float acc[MH][2][4], small[MH][2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int mt = 0; mt < MH; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int n = 0; n < NP; n += 4) {
-        float4 cv[4], sv[4];
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(&Cs[(ty + 16 * i) * LD + n]);
+            for (int e = 0; e < 4; ++e) acc[mt][j][e] = small[mt][j][e] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sv[j] = *reinterpret_cast<const float4*>(&S[(tx + 16 * j) * LD + n]);
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          // the state's parts of this k-step (lo rounded to TF32) and C's A
+          // fragments (rows g, g + 8; columns tig, tig + 4), split
+          uint32_t bh[2][2], bl[2][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] = fmaf(cv[i].x, sv[j].x, acc[i][j]);
-            acc[i][j] = fmaf(cv[i].y, sv[j].y, acc[i][j]);
-            acc[i][j] = fmaf(cv[i].z, sv[j].z, acc[i][j]);
-            acc[i][j] = fmaf(cv[i].w, sv[j].w, acc[i][j]);
+            for (int e = 0; e < 2; ++e) {
+              bh[j][e] = __float_as_uint(shi[kk][j][e]);
+              bl[j][e] = tf32(slo[kk][j][e]);
+            }
+#pragma unroll
+          for (int mt = 0; mt < MH; ++mt) {
+            const float* cr = Cs + ((m0 + mt) * 16 + g) * LD + kk * 8 + tig;
+            const float x[4] = {cr[0], cr[8 * LD], cr[4], cr[8 * LD + 4]};
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ah[e] = tf32(x[e]);
+              al[e] = tf32(x[e] - __uint_as_float(ah[e]));
+            }
+            // lo.hi and hi.lo go on the tensor cores' own running sum
+            // (2^-11 of y, so their truncation does not show); hi.hi is
+            // summed from zero and added to the f32 running sum (round to
+            // nearest): the tensor cores truncate their sums
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              float t[4] = {0.f, 0.f, 0.f, 0.f};
+              mma(small[mt][j], al, bh[j][0], bh[j][1]);
+              mma(small[mt][j], ah, bl[j][0], bl[j][1]);
+              mma(t, ah, bh[j][0], bh[j][1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mt][j][e] += t[e];
+            }
           }
-      }
+        }
+        // y = sum * exp(cum): rows g (c0, c1) and g + 8 (c2, c3), columns
+        // dq + 8 j + 2 tig (+1)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= rows) continue;
-        const float ec = ecum[r];
+        for (int mt = 0; mt < MH; ++mt) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int d = tx + 16 * j;
-          if (d < a.hd) yc[(int64_t)(i0 + r) * y_si + d] = acc[i][j] * ec;
+          for (int r = 0; r < 2; ++r) {
+            const int i = (m0 + mt) * 16 + g + 8 * r;
+            if (i >= rows) continue;
+            const float ec = expf(Es[i]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int d = dq + 8 * j + 2 * tig;
+              float* dst = yc + i * y_si + d;
+              const float v0 =
+                  (acc[mt][j][2 * r] + small[mt][j][2 * r]) * ec;
+              const float v1 =
+                  (acc[mt][j][2 * r + 1] + small[mt][j][2 * r + 1]) * ec;
+              if (pairs && d + 1 < a.hd) {
+                __stcs(reinterpret_cast<float2*>(dst), make_float2(v0, v1));
+              } else {
+                if (d < a.hd) __stcs(dst, v0);
+                if (d + 1 < a.hd) __stcs(dst + 1, v1);
+              }
+            }
+          }
         }
       }
-      __syncthreads();  // Cs, ecum and S are read; the next tile or the
-                        // state update may overwrite them
+      // s = s * exp(total) + states, each thread its own elements
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = dq + 8 * j + g, n = kk * 8 + tig + 4 * e;
+            const float s = fmaf(shi[kk][j][e] + slo[kk][j][e], decay,
+                                 Ss[d * LD + n]);
+            uint32_t hb, lb;
+            split(s, hb, lb);
+            shi[kk][j][e] = __uint_as_float(hb);
+            slo[kk][j][e] = __uint_as_float(lb);
+          }
+      }
     }
-    const float decay = expf(a.totals[b * a.t_sb + c * a.t_sc + h * a.t_sh]);
-    const float* sc = a.states + b * a.s_sb + c * a.s_sc + h * a.s_sh;
-    for (int e = tid; e < a.hd * a.N; e += THREADS) {
-      const int d = e / a.N, n = e % a.N;
-      S[d * LD + n] = S[d * LD + n] * decay + sc[d * a.s_sd + n * a.s_sn];
-    }
-    __syncthreads();
+    __syncthreads();  // this buffer is refilled by the next iteration
   }
-  float* fin = a.final_state + ((int64_t)b * a.nh + h) * a.hd * a.N;
-  for (int e = tid; e < a.hd * a.N; e += THREADS)
-    fin[e] = S[(e / a.N) * LD + e % a.N];
+  cp_wait<0>();
+  if (rt == 0 && active) {
+    float* fin = a.final_state + ((int64_t)b * a.nh + h) * a.hd * a.N;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = dq + 8 * j + g, n = kk * 8 + tig + 4 * e;
+          if (d < a.hd && n < a.N)
+            fin[d * a.N + n] = shi[kk][j][e] + slo[kk][j][e];
+        }
+  }
 }
+
+template <int HPC>
+int launch(const Args& a, cudaStream_t stream) {
+  static const cudaError_t prepared = cudaFuncSetAttribute(
+      ssd_state_scan_kernel<HPC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Stage<HPC>::smem_bytes);
+  if (prepared != cudaSuccess) return (int)prepared;
+  const int64_t ctas = (int64_t)a.B * ((a.nh + HPC - 1) / HPC) *
+                       max(1, (a.Q + RT - 1) / RT);
+  if (ctas >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
+  ssd_state_scan_kernel<HPC><<<(unsigned)ctas, 128 * HPC,
+                               Stage<HPC>::smem_bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HPC>
+int info(int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_state_scan_kernel<HPC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Stage<HPC>::smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes at;
+  err = cudaFuncGetAttributes(&at, ssd_state_scan_kernel<HPC>);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, ssd_state_scan_kernel<HPC>, 128 * HPC, Stage<HPC>::smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = at.numRegs;
+  out[1] = ctas;
+  out[2] = Stage<HPC>::smem_bytes;
+  out[3] = 128 * HPC;
+  out[4] = (int)at.localSizeBytes;
+  return 0;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// All strides in elements.  hd and N at most 64.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// All strides in elements.  hd and N at most 64; hpc (1 or 2) heads a CTA.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ssd_state_scan_launch(
     const void* states, const void* totals, const void* C, const void* cum,
     void* y, void* final_state, int B, int nc, int nh, int hd, int N, int Q,
     int64_t s_sb, int64_t s_sc, int64_t s_sh, int64_t s_sd, int64_t s_sn,
     int64_t t_sb, int64_t t_sc, int64_t t_sh, int64_t c_sb, int64_t c_sc,
     int64_t c_si, int64_t c_sn, int64_t u_sb, int64_t u_sc, int64_t u_si,
-    int64_t u_sh, void* stream) {
+    int64_t u_sh, int hpc, void* stream) {
   if (B == 0 || nh == 0) return 0;
   if (hd > TS || N > TS || hd < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const int c_vec = c_sn == 1 && N % 4 == 0 && c_si % 4 == 0 &&
+                    c_sc % 4 == 0 && c_sb % 4 == 0 && aligned16(C);
+  const int s_vec = s_sn == 1 && N % 4 == 0 && s_sd % 4 == 0 &&
+                    s_sh % 4 == 0 && s_sc % 4 == 0 && s_sb % 4 == 0 &&
+                    aligned16(states);
   Args a{(const float*)states, (const float*)totals, (const float*)C,
          (const float*)cum,    (float*)y,            (float*)final_state,
-         B,    nc,   nh,   hd,   N,    Q,    s_sb, s_sc, s_sh, s_sd, s_sn,
-         t_sb, t_sc, t_sh, c_sb, c_sc, c_si, c_sn, u_sb, u_sc, u_si, u_sh};
-  ssd_state_scan_kernel<<<B * nh, THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+         B,    nc,   nh,   hd,   N,    Q,    c_vec, s_vec,
+         s_sb, s_sc, s_sh, s_sd, s_sn, t_sb, t_sc, t_sh,
+         c_sb, c_sc, c_si, c_sn, u_sb, u_sc, u_si, u_sh};
+  if (hpc == 1) return launch<1>(a, (cudaStream_t)stream);
+  if (hpc == 2) return launch<2>(a, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out[5]: registers a thread, CTAs an SM, dynamic shared memory, threads,
+// local memory a thread of the instance with hpc heads a CTA
+extern "C" int ssd_state_scan_info(int hpc, int* out) {
+  if (hpc == 1) return info<1>(out);
+  if (hpc == 2) return info<2>(out);
+  return (int)cudaErrorInvalidValue;
 }

@@ -11,6 +11,15 @@ Pallas TPU kernel ``flash_decode`` of the reference's
 :func:`flash_decode_ref`, the plain PyTorch version (the reference's
 ``layers.decode_attention``, a grouped einsum, its oracle), on CPU
 tensors.  A CUDA tensor launches the kernel or raises.
+
+The source holds two kernels (:func:`route` picks one from the inputs):
+bf16 at hd 64, 112 and 128 runs the tensor-core kernel, f32 and hd 256
+the FMA kernel.  Both walk a persistent grid of one full wave
+(:func:`plan`): ``n_ctas`` CTAs, the SMs times the CTAs an SM that the
+occupancy API reports for the instance, each take an equal share of the
+(unit, 16-key group) sequence, where a unit is one (request, one or two
+KV heads, block of query heads); when a share boundary cuts a unit, a
+second kernel merges its partials.
 """
 
 from __future__ import annotations
@@ -23,10 +32,15 @@ import torch
 
 from repro_torch.kernels.flash_attention import NEG_INF, softcap
 
-#: head dims the CUDA kernel is built for
+#: head dims the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (64, 112, 128, 256)
-#: a split of the keys of one (request, KV head) holds at least this many
-MIN_SPLIT_KEYS = 256
+#: head dims of the tensor-core kernel (bf16 only)
+TC_HEAD_DIMS = (64, 112, 128)
+#: keys of one group: the persistent grid's unit of work (``KG`` in the
+#: source)
+GROUP_KEYS = 16
+#: a CTA's share of the keys holds at least this many
+MIN_CTA_KEYS = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -83,16 +97,63 @@ def _check(q, k_cache, v_cache, pos, window) -> None:
         raise ValueError("flash_decode: tensors on more than one device")
 
 
+def route(q: torch.Tensor, k_cache: torch.Tensor) -> str:
+    """The kernel a CUDA call runs: ``"tc"`` (the tensor-core kernel) for
+    bf16 at a head dim of :data:`TC_HEAD_DIMS`, else ``"fma"``."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS:
+        return "tc"
+    return "fma"
+
+
 def group_block(G: int) -> int:
-    """Query heads of one KV group a CTA takes: 1, 2, 4 or 8."""
+    """Query heads of one KV group the FMA kernel's unit takes: 1, 2, 4
+    or 8."""
     return min(8, 1 << (G - 1).bit_length())
 
 
-def n_splits(B: int, KV: int, G: int, T: int, sms: int) -> int:
-    """Key ranges per (request, KV head): enough CTAs for about four per
-    SM, with at least :data:`MIN_SPLIT_KEYS` keys in each range."""
-    ctas = B * KV * -(-G // group_block(G))
-    return max(1, min(-(-4 * sms // ctas), -(-T // MIN_SPLIT_KEYS)))
+def heads_per_unit(G: int, kernel_route: str) -> int:
+    """Query heads of one unit: the tensor-core kernel takes up to 16 (the
+    rows of its products), the FMA kernel :func:`group_block`."""
+    return min(16, G) if kernel_route == "tc" else group_block(G)
+
+
+def kv_heads_per_unit(KV: int, hd: int, kernel_route: str) -> int:
+    """KV heads of one unit: 2 (read in turns, group by group) for the
+    tensor-core kernel when a head's bf16 row is not a whole number of the
+    memory's 64-byte granules (hd 112: 224 bytes) and KV is even, so that
+    the granule two neighbouring heads' rows share is fetched once; else
+    1."""
+    return 2 if (kernel_route == "tc" and (2 * hd) % 64 and KV % 2 == 0) else 1
+
+
+def n_ctas(groups: int, sms: int, ctas_per_sm: int) -> int:
+    """CTAs of the persistent grid over ``groups`` 16-key groups: one full
+    wave, ``sms`` times the CTAs an SM that the occupancy API reports for
+    the instance, each taking an equal share; fewer when that would leave
+    a CTA under :data:`MIN_CTA_KEYS` keys (then one CTA per that many)."""
+    return max(1, min(sms * ctas_per_sm,
+                      groups * GROUP_KEYS // MIN_CTA_KEYS))
+
+
+@functools.lru_cache(maxsize=1024)
+def cuts_a_unit(units: int, ng: int, ctas: int) -> bool:
+    """Whether a boundary between two CTAs' shares falls inside one of the
+    units of ``ng`` groups each (then the kernel writes partials and a
+    second kernel merges them)."""
+    W = units * ng
+    return any((c * W // ctas) % ng for c in range(1, ctas))
+
+
+def plan(B: int, KV: int, G: int, T: int, hd: int, kernel_route: str,
+         sms: int, ctas_per_sm: int) -> tuple:
+    """(query heads of a unit's KV head, KV heads a unit, CTAs, whether a
+    unit is cut) of one call."""
+    gb = heads_per_unit(G, kernel_route)
+    kvu = kv_heads_per_unit(KV, hd, kernel_route)
+    units = B * (KV // kvu) * -(-G // gb)
+    ng = kvu * -(-T // GROUP_KEYS)
+    ctas = n_ctas(units * ng, sms, ctas_per_sm)
+    return gb, kvu, ctas, cuts_a_unit(units, ng, ctas)
 
 
 @functools.cache
@@ -101,32 +162,47 @@ def _sm_count(index: int) -> int:
 
 
 @functools.cache
-def _launcher():
-    """The kernel's C entry point, built and typed once, on first use."""
+def _lib() -> ctypes.CDLL:
+    """The kernels' library, built and its entry points typed once, on
+    first use."""
     from repro_torch.kernels import _build
-    fn = _build.load("flash_decode").flash_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_int64] * 8
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("flash_decode")
+    lib.flash_decode_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_int64] * 8
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_decode_launch.restype = ctypes.c_int
+    lib.flash_decode_info.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.flash_decode_info.restype = ctypes.c_int
+    return lib
 
 
-def kernel_info(hd: int, gb: int) -> dict:
-    """What the compiler and the occupancy API report for the bf16
-    instance at ``hd`` and ``gb`` query heads a CTA (needs a CUDA
-    device)."""
-    from repro_torch.kernels import _build
-    fn = _build.load("flash_decode").flash_decode_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
+@functools.cache
+def kernel_info(kernel_route: str, dtype: torch.dtype, hd: int,
+                gb: int) -> dict:
+    """What the compiler and the occupancy API report for the instance
+    that ``kernel_route`` runs at ``dtype``, ``hd`` and ``gb`` query heads
+    a unit (needs a CUDA device)."""
     out = (ctypes.c_int * 5)()
-    err = fn(hd, gb, out)
+    err = _lib().flash_decode_info(int(kernel_route == "tc"),
+                                   _DTYPE_CODE[dtype], hd, gb, out)
     if err != 0:
         raise RuntimeError(f"flash_decode: kernel_info failed ({err})")
     return dict(registers=out[0], ctas_per_sm=out[1], smem_bytes=out[2],
                 threads=out[3], local_bytes=out[4])
+
+
+@functools.cache
+def _plan(B: int, KV: int, G: int, T: int, kernel_route: str,
+          dtype: torch.dtype, hd: int, index: int) -> tuple:
+    """:func:`plan` on the card ``index`` for its SMs and the instance's
+    CTAs an SM."""
+    gb = heads_per_unit(G, kernel_route)
+    occ = kernel_info(kernel_route, dtype, hd, gb)["ctas_per_sm"]
+    if occ < 1:
+        raise RuntimeError(f"flash_decode: the {kernel_route} kernel at hd "
+                           f"{hd} does not fit on an SM")
+    return plan(B, KV, G, T, hd, kernel_route, _sm_count(index), occ)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -167,29 +243,35 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.stride(2) != 1:
         raise ValueError("flash_decode: q's head dim must be contiguous")
     G = H // KV
-    gb = group_block(G)
-    n_split = n_splits(B, KV, G, T, _sm_count(q.device.index))
-    chunk = -(-T // n_split)
-    if B * KV * -(-G // gb) >= 2 ** 31:
-        raise ValueError("flash_decode: too many (request, KV head) blocks")
+    kernel_route = route(q, k_cache)
+    if B * KV * G >= 2 ** 31:
+        raise ValueError("flash_decode: too many (request, query head) rows")
+    gb, kvu, ctas, cut = _plan(B, KV, G, T, kernel_route, q.dtype, hd,
+                               q.device.index)
     scale = (hd ** -0.5) if scale is None else scale
     p32 = pos.to(torch.int32).contiguous()
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    part = (torch.empty((n_split, B, H, hd + 2), dtype=torch.float32,
-                        device=q.device) if n_split > 1 else None)
-    err = _launcher()(
+    units = B * (KV // kvu) * -(-G // gb)
+    part = (torch.empty((ctas + units - 1, kvu * gb, hd + 2),
+                        dtype=torch.float32, device=q.device)
+            if cut else None)
+    err = _lib().flash_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), p32.data_ptr(),
         out.data_ptr(), 0 if part is None else part.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, T, H, KV, hd, gb, n_split, chunk,
-        q.stride(0), q.stride(1), *k_cache.stride()[:3],
+        int(kernel_route == "tc"), _DTYPE_CODE[q.dtype], B, T, H, KV, hd, gb,
+        kvu, ctas, int(cut), q.stride(0), q.stride(1), *k_cache.stride()[:3],
         *v_cache.stride()[:3], float(scale), float(logit_cap), int(window),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode: kernel launch failed "
                            f"(cudaGetLastError {err})")
     flash_decode.launches += 1
+    if kernel_route == "tc":
+        flash_decode.tc_launches += 1
     return out
 
 
 #: kernel launches so far (CPU calls run the plain version and do not count)
 flash_decode.launches = 0  # type: ignore[attr-defined]
+#: of those, launches of the tensor-core kernel
+flash_decode.tc_launches = 0  # type: ignore[attr-defined]

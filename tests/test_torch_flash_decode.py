@@ -9,10 +9,16 @@ against the reference's, on the CPU.
 * ``layers.decode_attention`` runs the kernel's entry point under
   ``pallas``; the dense model's decode steps under ``pallas`` match the
   reference's;
-* how the wrapper cuts the keys into splits; its contract: CPU calls do
-  not count launches, inputs the kernel does not take raise; the CUDA
-  kernel against its plain version (``gpu`` marker, skipped without a
-  card).
+* the wrapper's persistent grid (one full wave, shares of 16-key groups)
+  and its route rule; its contract: CPU calls do not count launches,
+  inputs the kernel does not take raise; the CUDA kernels against their
+  plain version, at the four serving shapes too (``gpu`` marker, skipped
+  without a card);
+* the tensor-core kernel's arithmetic (bf16 Q.K^T with f32 sums, the
+  online softmax in f32, P split into two bf16 halves, its grid's warp
+  and segment merges), emulated in plain PyTorch, against the
+  reference's Pallas kernel in f32 within the card's row limit, and
+  bf16-only P shown to miss that limit.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -162,16 +168,180 @@ def test_dense_decode_under_pallas_matches_reference(arch):
         np.testing.assert_allclose(_np(cache[kv]), _np(jcache[kv]), **BF16_TOL)
 
 
-@pytest.mark.parametrize("B,KV,G,T,want", [
-    (128, 8, 4, 2048, 1), (32, 8, 4, 8192, 3), (32, 32, 1, 4096, 1),
-    (8, 32, 1, 16384, 3), (1, 32, 1, 65536, 17), (8, 8, 2, 8192, 9),
-    (3, 2, 4, 512, 2), (1, 1, 48, 100, 1),
+@pytest.mark.parametrize("B,KV,G,T,hd,kernel,occ,kvu,ctas,cut", [
+    (128, 8, 4, 2048, 128, "tc", 2, 1, 264, True),   # granite 128 x 2048
+    (32, 8, 4, 8192, 128, "tc", 2, 1, 264, True),    # granite 32 x 8192
+    (32, 32, 1, 4096, 112, "tc", 2, 2, 264, True),   # zamba2 32 x 4096
+    (8, 32, 1, 16384, 112, "tc", 2, 2, 264, True),   # zamba2 8 x 16384
+    (264, 1, 1, 256, 64, "tc", 2, 1, 264, False),    # a whole unit a CTA
+    (3, 2, 4, 512, 112, "fma", 3, 1, 12, True),      # 256 keys a CTA
+    (1, 1, 48, 100, 128, "tc", 2, 1, 1, False),      # three units of 16
+    (2, 8, 2, 8192, 256, "fma", 1, 1, 132, True),
 ])
-def test_splits(B, KV, G, T, want):
-    """About four CTAs per SM of a 132-SM card, at least 256 keys each."""
-    assert fd.n_splits(B, KV, G, T, 132) == want
+def test_splits(B, KV, G, T, hd, kernel, occ, kvu, ctas, cut):
+    """The persistent grid on a 132-SM card: one full wave of SMs x the
+    CTAs an SM the instance gets, unless that leaves a CTA under 256 keys;
+    two KV heads a unit where a bf16 head row is not whole 64-byte
+    granules (tensor-core kernel, hd 112); whether a share boundary cuts a
+    unit (then partials are merged)."""
+    gb, k, n, c = fd.plan(B, KV, G, T, hd, kernel, 132, occ)
+    assert (k, n, c) == (kvu, ctas, cut)
+    assert gb == fd.heads_per_unit(G, kernel)
+    groups = B * KV * -(-G // gb) * -(-T // 16)
+    assert n == 132 * occ or n * fd.MIN_CTA_KEYS <= groups * 16
     assert [fd.group_block(g) for g in (1, 2, 3, 4, 5, 8, 48)] == [
         1, 2, 4, 4, 8, 8, 8]
+    assert [fd.heads_per_unit(g, "tc") for g in (1, 4, 16, 48)] == [
+        1, 4, 16, 16]
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    ("bfloat16", 128, "tc"), ("bfloat16", 112, "tc"), ("bfloat16", 64, "tc"),
+    ("bfloat16", 256, "fma"), ("float32", 128, "fma")])
+def test_route_follows_dtype_and_head_dim(dtype, hd, want):
+    """bf16 at hd 64, 112 and 128 takes the tensor-core kernel; f32 and
+    hd 256 the FMA kernel."""
+    _, (q, kc, _) = _both(_qkv(1, 16, 2, 1, hd), dtype)
+    assert fd.route(q, kc) == want
+
+
+#: the row limit of the card's check (``chip_smoke._hold_rows``): twice one
+#: bf16 rounding of the output plus 1e-4 of the row's RMS
+ROW_ULP, ROW_ATOL = 2.0 ** -7, 1e-4
+
+
+def _row_limit_used(got, want32):
+    rms = want32.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = (got.float() - want32).abs()
+    return (diff / (ROW_ULP * want32.abs() + ROW_ATOL * rms)).max().item()
+
+
+def _lse_merge(parts):
+    """(m, l, acc) triples merged by log-sum-exp."""
+    m = torch.stack([p[0] for p in parts]).max(0).values
+    w = [torch.exp(p[0] - m) for p in parts]
+    l = sum(p[1] * wi for p, wi in zip(parts, w))
+    acc = sum(p[2] * wi[:, None] for p, wi in zip(parts, w))
+    return m, l, acc
+
+
+def _emulate_tc_decode(q, k, v, pos, *, window, cap, ctas, split=True):
+    """The tensor-core kernel's arithmetic in plain PyTorch, on the grid of
+    ``ctas`` CTAs: each CTA's share of the (unit, 16-key group) sequence,
+    cut into segments at unit boundaries (a unit of two KV heads takes
+    them in turns, group by group); in a segment warp w takes the share's
+    groups w, w + 4, ... (all of one KV head); per group the scores from
+    the bf16
+    values with f32 sums, scaled, softcapped and masked in f32 (keys
+    outside [lo, pos] zero-filled, -1e30), the online softmax in f32, P.V
+    as P_hi.V + P_lo.V (P_hi = bf16(P), P_lo = bf16(P - P_hi); only P_hi
+    when ``split`` is False) summed in f32; the warps merged by log-sum-
+    exp, then the segments of a cut unit; the output rounded to bf16."""
+    B, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    gb = fd.heads_per_unit(G, "tc")
+    kvu = fd.kv_heads_per_unit(KV, hd, "tc")
+    n_gb = -(-G // gb)
+    ng = kvu * -(-T // 16)
+    W = B * (KV // kvu) * n_gb * ng
+    scale = hd ** -0.5
+    out = torch.zeros(B, H, hd)
+    parts = {}
+    for c in range(ctas):
+        gs, ge = c * W // ctas, (c + 1) * W // ctas
+        sa = gs
+        while sa < ge:
+            u = sa // ng
+            sb = min(ge, (u + 1) * ng)
+            g0 = u % n_gb * gb
+            kv0 = u // n_gb % (KV // kvu) * kvu
+            b = u // (n_gb * (KV // kvu))
+            p = int(pos[b])
+            lo, hi = (max(0, p - window + 1) if window else 0), min(T, p + 1)
+            warps = {}
+            for w in range(4):
+                sub = (gs + w) % kvu   # the warp's KV head of the unit
+                kvh = kv0 + sub
+                heads = slice(kvh * G + g0, kvh * G + min(G, g0 + gb))
+                qs = q[b, heads].float()
+                m = torch.full((qs.shape[0],), -1e30)
+                l = torch.zeros(qs.shape[0])
+                acc = torch.zeros(qs.shape[0], hd)
+                for x in range(gs + w, sb, 4):
+                    key0 = (x - u * ng) // kvu * 16
+                    if x < sa or not (key0 < hi and key0 + 16 > lo):
+                        continue
+                    keys = torch.arange(key0, key0 + 16)
+                    ok = (keys >= lo) & (keys < hi)
+                    kt = torch.zeros(16, hd)
+                    vt = torch.zeros(16, hd)
+                    kt[ok] = k[b, keys[ok], kvh].float()
+                    vt[ok] = v[b, keys[ok], kvh].float()
+                    s = (qs @ kt.T) * scale
+                    if cap:
+                        s = cap * torch.tanh(s / cap)
+                    s = torch.where(ok, s, torch.tensor(-1e30))
+                    mx = torch.maximum(m, s.max(-1).values)
+                    corr = torch.exp(m - mx)
+                    pr = torch.exp(s - mx[:, None])
+                    ph = pr.to(torch.bfloat16).float()
+                    pv = ph @ vt
+                    if split:
+                        pv = pv + (pr - ph).to(torch.bfloat16).float() @ vt
+                    acc = acc * corr[:, None] + pv
+                    l = l * corr + pr.sum(-1)
+                    m = mx
+                warps.setdefault(heads, []).append((m, l, acc))
+            for heads, states in warps.items():
+                seg = _lse_merge(states)
+                if sa == u * ng and sb == (u + 1) * ng:
+                    out[b, heads] = seg[2] / seg[1].clamp_min(1e-30)[:, None]
+                else:
+                    parts.setdefault((b, heads.start, heads.stop),
+                                     []).append(seg)
+            sa = sb
+    for (b, h0, h1), segs in parts.items():
+        _, l, acc = _lse_merge(segs)
+        out[b, h0:h1] = acc / l.clamp_min(1e-30)[:, None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("B,T,H,KV,hd,window,cap,ctas", [
+    (2, 512, 8, 2, 128, 0, 0.0, 5),      # granite's G = 4, cut units
+    (3, 300, 4, 4, 112, 0, 0.0, 7),      # zamba2's G = 1, two KV heads a unit
+    (2, 256, 8, 2, 64, 40, 30.0, 3),     # window and softcap
+    (1, 200, 20, 1, 128, 0, 0.0, 1),     # 20 heads: units of 16 and 4
+])
+def test_tensor_core_rounding_against_pallas_in_f32(B, T, H, KV, hd, window,
+                                                    cap, ctas, split):
+    """The tensor-core kernel's rounding on bf16 inputs, emulated on its
+    grid (ragged positions, one request at T - 1), against the reference's
+    Pallas kernel in interpret mode on the same values in f32: with P split
+    into two bf16 halves it stays within the card's row limit, using under
+    0.5 of it as the output's own rounding does, and matches the plain
+    version at the bf16 tolerance; with bf16 P alone it goes far over
+    (10 to 25 times the limit here), which is why the kernel splits P."""
+    arrays = _qkv(B, T, H, KV, hd, seed=11)
+    _, (q, k, v) = _both(arrays, "bfloat16")
+    pos = np.random.default_rng(12).integers(0, T, size=(B,)).astype(
+        np.int32)
+    pos[0] = T - 1
+    want = jops.flash_decode(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)),
+                             jnp.asarray(pos), block_k=64 if T % 64 == 0 else T,
+                             window=window, logit_cap=cap)
+    want32 = torch.from_numpy(np.array(want, np.float32))
+    tp = torch.from_numpy(pos)
+    got = _emulate_tc_decode(q, k, v, tp, window=window, cap=cap, ctas=ctas,
+                             split=split)
+    used = _row_limit_used(got, want32)
+    if split:
+        assert used < 0.5, used
+        plain = fd.flash_decode_ref(q, k, v, tp, window=window, logit_cap=cap)
+        np.testing.assert_allclose(_np(got), _np(plain), **BF16_TOL)
+    else:
+        assert used > 5.0, used
 
 
 def test_cpu_calls_run_the_plain_version_and_do_not_count():
@@ -209,30 +379,41 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,B,T,H,KV,hd,window,cap", [
-    ("bfloat16", 4, 2048, 32, 8, 128, 0, 0.0),     # granite, one split
-    ("bfloat16", 1, 20000, 32, 32, 112, 0, 0.0),   # zamba2, many splits
+    ("bfloat16", 4, 2048, 32, 8, 128, 0, 0.0),     # granite, few CTAs
+    ("bfloat16", 1, 20000, 32, 32, 112, 0, 0.0),   # zamba2, one long request
     ("bfloat16", 2, 3000, 16, 8, 256, 1000, 50.0),  # gemma2 local
     ("float32", 3, 512, 8, 2, 64, 0, 0.0),
-    ("float32", 2, 777, 48, 1, 128, 0, 0.0),       # MQA, two head blocks
+    ("float32", 2, 777, 48, 1, 128, 0, 0.0),       # MQA, six head blocks
+    ("bfloat16", 2, 777, 48, 1, 64, 100, 30.0),    # MQA, three units of 16
+    ("bfloat16", 128, 2048, 32, 8, 128, 0, 0.0),   # the serving shapes
+    ("bfloat16", 32, 8192, 32, 8, 128, 0, 0.0),
+    ("bfloat16", 32, 4096, 32, 32, 112, 0, 0.0),
+    ("bfloat16", 8, 16384, 32, 32, 112, 0, 0.0),
 ])
 def test_kernel_matches_plain_version_on_gpu(dtype, B, T, H, KV, hd, window,
                                              cap):
     """The CUDA kernel against its plain version on the card, ragged
-    positions, one launch per call, and no change when the cache past
-    each position is overwritten (needs a card; skipped elsewhere)."""
+    positions, one launch per call on the route the wrapper's rule picks,
+    and no change when the cache past each position is overwritten (needs
+    a card; skipped elsewhere)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     td = getattr(torch, dtype)
-    q, kc, vc = (torch.from_numpy(a).to("cuda", td)
-                 for a in _qkv(B, T, H, KV, hd))
-    pos = torch.from_numpy(np.random.default_rng(1).integers(
-        0, T, size=(B,)).astype(np.int32)).cuda()
+    g = torch.Generator("cuda").manual_seed(1)
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(td)
+    kc = torch.randn(B, T, KV, hd, generator=g, device="cuda").to(td)
+    vc = torch.randn(B, T, KV, hd, generator=g, device="cuda").to(td)
+    pos = torch.randint(0, T, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
     pos[0] = T - 1
     kw = dict(window=window, logit_cap=cap)
     before = fd.flash_decode.launches
+    tc_before = fd.flash_decode.tc_launches
     got = fd.flash_decode(q, kc, vc, pos, **kw)
     torch.cuda.synchronize()
     assert fd.flash_decode.launches == before + 1
+    assert fd.flash_decode.tc_launches - tc_before == (
+        fd.route(q, kc) == "tc")
     want = fd.flash_decode_ref(q, kc, vc, pos, **kw)
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **_tol(dtype))
     past = torch.arange(T, device="cuda")[None, :] > pos[:, None]

@@ -14,6 +14,10 @@ CPU.
   cumulative decays reach -1e3 and their f32 rounding is 1e-4 of the
   decay), ``ssd_chunked`` against the token-by-token recurrence in
   float64, where the reference lies too;
+* the kernel's 3xTF32 products (C and the state each split into TF32 hi
+  and lo parts, hi.hi + hi.lo + lo.hi in f32), emulated chunk by chunk,
+  against the reference's Pallas kernel and the plain version at 1e-5,
+  and single-pass TF32 shown to miss that tolerance;
 * the wrapper's contract: CPU calls do not count launches, inputs the
   kernel does not take raise; the CUDA kernel against its plain version
   (``gpu`` marker, skipped without a card).
@@ -87,6 +91,56 @@ def test_plain_scan_takes_strided_inputs_and_an_initial_state():
     np.testing.assert_allclose(_np(fi - fin), _np(s0 * decay), **F32_TOL)
     first = torch.einsum("bin,bhdn,bih->bihd", C[:, 0], s0, torch.exp(cum[:, 0]))
     np.testing.assert_allclose(_np(yi[:, 0]), _np(first), **F32_TOL)
+
+
+def _tf32(x):
+    """x rounded to TF32 (float32 with its low 13 mantissa bits cleared),
+    to nearest, ties away from zero (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32) + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _emulate_tc_scan(states, totals, C, cum, passes=3):
+    """The kernel's arithmetic in plain PyTorch: the state recurrence in
+    f32, chunk by chunk; each chunk's product from TF32 parts, C and the
+    state each split as hi = TF32(x) and lo = TF32(x - hi), summed as
+    hi.hi + hi.lo + lo.hi in f32 (3xTF32; ``passes=1``: hi.hi alone,
+    single-pass TF32); y scaled by exp(cum)."""
+    B, nc, nh, hd, N = states.shape
+    s = torch.zeros(B, nh, hd, N)
+    ys = []
+    for c in range(nc):
+        ch, sh = _tf32(C[:, c]), _tf32(s)
+        y = torch.einsum("bin,bhdn->bihd", ch, sh)
+        if passes == 3:
+            cl, sl = _tf32(C[:, c] - ch), _tf32(s - sh)
+            y = (torch.einsum("bin,bhdn->bihd", cl, sh)
+                 + torch.einsum("bin,bhdn->bihd", ch, sl) + y)
+        ys.append(y * torch.exp(cum[:, c])[..., None])
+        s = s * torch.exp(totals[:, c])[:, :, None, None] + states[:, c]
+    return torch.stack(ys, 1), s
+
+
+@pytest.mark.parametrize("B,nc,nh,hd,N,Q", [
+    (2, 4, 3, 8, 16, 32), (1, 8, 2, 16, 32, 64),
+    (1, 3, 2, 64, 64, 256),       # zamba2's head dim, state and chunk
+])
+def test_tensor_core_rounding_against_pallas_interpret(B, nc, nh, hd, N, Q):
+    """The kernel's 3xTF32 products, emulated, against the reference's
+    Pallas kernel in interpret mode and the plain version at the 1e-5
+    tolerance; single-pass TF32 products miss it many times over, which is
+    why the kernel takes three."""
+    arrays = _scan_inputs(B, nc, nh, hd, N, Q, seed=13)
+    t = [torch.from_numpy(a) for a in arrays]
+    y, fin = _emulate_tc_scan(*t)
+    pallas = jops.ssd_state_scan(*(jnp.asarray(a) for a in arrays))
+    for yr, fr in (pallas, sc.ssd_state_scan_ref(*t)):
+        np.testing.assert_allclose(_np(y), _np(yr), **F32_TOL)
+        np.testing.assert_allclose(_np(fin), _np(fr), **F32_TOL)
+    y1, _ = _emulate_tc_scan(*t, passes=1)
+    yr = _np(pallas[0])
+    over = np.abs(_np(y1) - yr) / (F32_TOL["atol"] + F32_TOL["rtol"] * np.abs(yr))
+    assert over.max() > 5.0, over.max()
 
 
 #: Mamba2's own step-size range (its dt_bias init draws dt log-uniformly
@@ -270,14 +324,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hpc", [1, 2])
 @pytest.mark.parametrize("B,nc,nh,hd,N,Q,strided", [
     (2, 4, 3, 8, 16, 32, False), (1, 16, 8, 64, 64, 256, False),
     (2, 5, 4, 64, 64, 100, True), (1, 3, 2, 48, 40, 70, True),
+    (1, 128, 112, 64, 64, 256, False),   # zamba2, one 32768-token request
 ])
-def test_kernel_matches_plain_version_on_gpu(B, nc, nh, hd, N, Q, strided):
-    """The CUDA kernel against its plain version on the card, one launch
-    per call, on contiguous and strided inputs (needs a card; skipped
-    elsewhere)."""
+def test_kernel_matches_plain_version_on_gpu(B, nc, nh, hd, N, Q, strided,
+                                             hpc):
+    """The CUDA kernel (both instances: one or two heads a CTA) against its
+    plain version on the card, one launch per call, on contiguous and
+    strided inputs (needs a card; skipped elsewhere)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     states, totals, C, cum = (torch.from_numpy(a).cuda() for a in
@@ -286,7 +343,7 @@ def test_kernel_matches_plain_version_on_gpu(B, nc, nh, hd, N, Q, strided):
         totals = cum[:, :, -1]
         states = states.transpose(3, 4).contiguous().transpose(3, 4)
     before = sc.ssd_state_scan.launches
-    y, fin = sc.ssd_state_scan(states, totals, C, cum)
+    y, fin = sc.ssd_state_scan(states, totals, C, cum, heads_per_cta=hpc)
     torch.cuda.synchronize()
     assert sc.ssd_state_scan.launches == before + 1
     yr, fr = sc.ssd_state_scan_ref(states, totals, C, cum)
