@@ -21,8 +21,8 @@ shapes (granite 128 x 2048 and 32 x 8192, zamba2 32 x 4096 and 8 x 16384)
 its time beside SDPA's, the bytes bound, the share of the memory rate,
 the registers, CTAs an SM and waves of its grid (``decode shape:``
 lines); the SSD state scan at zamba2's prefill and a 32768-token
-request, both of its instances (one and two heads a CTA) timed with
-their registers and CTAs an SM beside the bound and the bytes floor.
+request, timed with its registers and CTAs an SM beside the bound and
+the bytes floor.
 Then the paths, each with every kernel's launches counted from 0 just
 before it and read just after (every flash-decode launch on the
 tensor-core kernel):
@@ -568,45 +568,29 @@ def _decode_visible(pos, T: int, window: int) -> list:
     return out
 
 
-def _decode_grid(B: int, T: int, H: int, KV: int, hd: int, sms: int) -> dict:
-    """The bf16 kernel instance's registers, CTAs an SM and spills
-    (compiler and occupancy API), and the persistent grid a call at this
-    shape launches, with the waves it makes on ``sms`` SMs (1 when the
-    grid is the full wave) and whether its shares cut a unit."""
-    import torch
-    from repro_torch.kernels import decode_attention as fd
-    G = H // KV
-    kernel_route = "tc" if hd in fd.TC_HEAD_DIMS else "fma"
-    gb = fd.heads_per_unit(G, kernel_route)
-    info = fd.kernel_info(kernel_route, torch.bfloat16, hd, gb)
-    _, kvu, ctas, cut = fd.plan(B, KV, G, T, hd, kernel_route, sms,
-                                info["ctas_per_sm"])
-    return dict(kernel=kernel_route, gb=gb, kv_heads_per_unit=kvu, **info,
-                grid=ctas, waves=ctas / (sms * info["ctas_per_sm"]),
-                units_cut=cut)
-
-
 def _decode_shape(g, dev, sms: int, case: str, B: int, T: int, H: int,
                   KV: int, hd: int) -> dict:
     """Flash decode at one serving shape (bf16, full cache): held to its
     plain version (``_hold_rows``), its time a launch beside one
     ``scaled_dot_product_attention`` call's on the (B, KV, T, hd) views
     with a key mask (``enable_gqa``), the bytes bound and the share of the
-    memory rate, and ``_decode_grid``."""
+    memory rate; the instance's registers, CTAs an SM and spills (compiler
+    and occupancy API) and the persistent grid it launches, with the waves
+    it makes on ``sms`` SMs (1 when it is the full wave)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import (
-        flash_decode, flash_decode_ref)
+    from repro_torch.kernels import decode_attention as fd
     q = torch.randn(B, H, hd, generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn(B, T, KV, hd, generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn(B, T, KV, hd, generator=g, device=dev).to(torch.bfloat16)
     pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
-    held = _hold_rows(flash_decode(q, k, v, pos),
-                      flash_decode_ref(q, k, v, pos),
-                      flash_decode_ref(q.float(), k.float(), v.float(), pos),
+    held = _hold_rows(fd.flash_decode(q, k, v, pos),
+                      fd.flash_decode_ref(q, k, v, pos),
+                      fd.flash_decode_ref(q.float(), k.float(), v.float(),
+                                          pos),
                       _attn_tol("bfloat16", 0, 0.0),
                       f"flash_decode vs its plain version at {case}")
-    ms = _cuda_ms(lambda: flash_decode(q, k, v, pos), 20)
+    ms = _cuda_ms(lambda: fd.flash_decode(q, k, v, pos), 20)
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     mask = (torch.arange(T, device=dev)[None, :] <= pos[:, None])[:, None, None]
     library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -614,12 +598,18 @@ def _decode_shape(g, dev, sms: int, case: str, B: int, T: int, H: int,
     keys = B * T
     nbytes = (2 * keys * KV * hd + 2 * q.numel()) * 2 + 4 * B
     bound = _bound(nbytes, 4 * keys * H * hd, BF16_FLOPS)
+    kernel_route = fd.route(q, k)
+    gb = fd.heads_per_unit(H // KV, kernel_route)
+    info = fd.kernel_info(kernel_route, q.dtype, hd, gb)
+    _, kvu, ctas, cut = fd.plan(B, KV, H // KV, T, hd, kernel_route, sms,
+                                info["ctas_per_sm"])
     return dict(case=case, shape=dict(B=B, T=T, H=H, KV=KV, hd=hd), ms=ms,
                 library_ms=library_ms, sdpa_factor=ms / library_ms,
                 memory_share=bound["bytes_ms"] / ms,
                 gb_s=bound["bytes"] / ms / 1e6, **bound,
-                **_decode_grid(B, T, H, KV, hd, sms), **held,
-                tensors=(q, k, v, pos))
+                kernel=kernel_route, gb=gb, kv_heads_per_unit=kvu, **info,
+                grid=ctas, waves=ctas / (sms * info["ctas_per_sm"]),
+                units_cut=cut, **held, tensors=(q, k, v, pos))
 
 
 def check_decode(dev) -> dict:
@@ -712,11 +702,10 @@ def _hold_ssd(got, want, what: str) -> dict:
 
 def check_ssd(dev) -> dict:
     """The SSD state-scan kernel against ``ssd_state_scan_ref`` on the card
-    at every ``SSD_CASES`` shape at ``SSD_TOL``; at the first the time of
-    both instances (one and two heads a CTA; the wrapper's default is the
-    one in the kernels line), each held again and with its registers and
-    CTAs an SM, the plain version's time, the bound (f32 operations) and
-    the design's floor (the bytes; no single PyTorch call computes it)."""
+    at every ``SSD_CASES`` shape at ``SSD_TOL``; at the first its time with
+    the registers and CTAs an SM it gets, the plain version's time, the
+    bound (f32 operations) and the design's floor (the bytes; no single
+    PyTorch call computes it)."""
     import torch
     from repro_torch.kernels import ssm_scan
     from repro_torch.kernels.ssm_scan import ssd_state_scan, ssd_state_scan_ref
@@ -734,6 +723,8 @@ def check_ssd(dev) -> dict:
     args, err = timed
     B, nc, nh, hd, N = args[0].shape
     Q = args[2].shape[2]
+    ms = _cuda_ms(lambda: ssd_state_scan(*args), 20)
+    plain_ms = _cuda_ms(lambda: ssd_state_scan_ref(*args), 3)
     # inputs read once, y and the final state written once; per chunk and
     # head the (Q x N) @ (N x hd) product, its exp(cum) scaling and the
     # state update
@@ -741,25 +732,14 @@ def check_ssd(dev) -> dict:
                   + B * nh * hd * N)
     flops = B * nc * nh * (2 * Q * N * hd + Q * hd + 2 * hd * N)
     bound = _bound(nbytes, flops, F32_FLOPS)
-    want = ssd_state_scan_ref(*args)
-    instances = {}
-    for hpc in (1, 2):
-        ms = _cuda_ms(lambda: ssd_state_scan(*args, heads_per_cta=hpc), 20)
-        held = _hold_ssd(ssd_state_scan(*args, heads_per_cta=hpc), want,
-                         f"{hpc} heads a CTA")
-        instances[hpc] = dict(ms=ms, **ssm_scan.kernel_info(hpc), **held,
-                              bound_share=bound["bound_ms"] / ms,
-                              floor_share=bound["bytes_ms"] / ms)
-    del want
-    plain_ms = _cuda_ms(lambda: ssd_state_scan_ref(*args), 3)
     return dict(name="ssd_state_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_state_scan.cu",
                 replaces="src/repro/kernels/ssm_scan.py:48", launches=0,
-                max_abs_err=err,
-                ms=instances[ssm_scan.HEADS_PER_CTA]["ms"],
-                plain_ms=plain_ms, **bound, design_floor_ms=bound["bytes_ms"],
-                library_ms=None, heads_per_cta=ssm_scan.HEADS_PER_CTA,
-                instances=instances, cases=rows,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
+                design_floor_ms=bound["bytes_ms"],
+                bound_share=bound["bound_ms"] / ms,
+                floor_share=bound["bytes_ms"] / ms, library_ms=None,
+                **ssm_scan.kernel_info(), cases=rows,
                 shape=dict(B=B, nc=nc, nh=nh, hd=hd, N=N, Q=Q))
 
 

@@ -26,16 +26,17 @@
 //
 // The TPU kernel walks the chunks as a sequential grid dimension with the
 // state in VMEM scratch, after transposing states, cum and y into per-head
-// layouts.  Here a CTA owns HPC heads of one batch and one tile of RT = 64
+// layouts.  Here a CTA owns one head of one batch and one tile of RT = 64
 // rows of every chunk, and walks the chunks itself: the Q / 64 row tiles of
 // a head are sibling CTAs, each running the head's (cheap) state recurrence
 // itself from `states` and `totals`, which the siblings read from L2, so a
-// head spreads over Q / 64 CTAs (1792 CTAs of 4 warps at zamba2's prefill
-// with HPC = 1); with HPC = 2 the two heads' warps share each staged C tile.
-// Per chunk the CTA stages the C tile, the heads' (hd x N) states blocks and
-// cum rows with `cp.async` into one of two buffers while it computes on the
-// other, so no tile waits on device memory.  Warp w of a head owns the
-// state columns d in [16 (w % 4), 16 (w % 4) + 16) as the B fragments of
+// head spreads over Q / 64 CTAs (1792 CTAs of 4 warps at zamba2's prefill;
+// a CTA of two heads sharing each staged C tile measured slower, 1 CTA an
+// SM at 255 registers).  Per chunk the CTA stages the C tile, the head's
+// (hd x N) states block and cum rows with `cp.async` into one of two
+// buffers while it computes on the other, so no tile waits on device
+// memory.  Warp w owns the state columns d in [16 w, 16 w + 16) as the B
+// fragments of
 // `mma.sync` m16n8k8 (TF32 in, f32 out), held in registers as an exact
 // hi + lo pair (hi = TF32(s), lo = s - hi), and computes those columns of y
 // for the tile's 64 rows: C's fragments are split the same way as they are
@@ -77,14 +78,13 @@ struct Args {
   int64_t u_sb, u_sc, u_si, u_sh;
 };
 
-// floats of one stage: the C tile, HPC states blocks, HPC cum rows
-template <int HPC>
-struct Stage {
-  static constexpr int C_SZ = RT * LD;
-  static constexpr int S_SZ = TS * LD;
-  static constexpr int SIZE = C_SZ + HPC * S_SZ + HPC * RT;
-  static constexpr int smem_bytes = 2 * SIZE * 4;
-};
+constexpr int THREADS = 128;  // four warps, 16 state rows (y columns) each
+
+// floats of one stage: the C tile, the states block, the cum rows
+constexpr int C_SZ = RT * LD;
+constexpr int S_SZ = TS * LD;
+constexpr int STAGE = C_SZ + S_SZ + RT;
+constexpr int SMEM_BYTES = 2 * STAGE * 4;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -134,32 +134,26 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int HPC>
-__global__ void __launch_bounds__(128 * HPC) ssd_state_scan_kernel(const Args a) {
-  constexpr int THREADS = 128 * HPC;
-  using St = Stage<HPC>;
+__global__ void __launch_bounds__(THREADS) ssd_state_scan_kernel(const Args a) {
   extern __shared__ __align__(16) float sm[];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int hw = warp >> 2;         // the warp's head within the CTA
-  const int dq = (warp & 3) * 16;   // its first state row (y column)
+  const int dq = warp * 16;  // the warp's first state row (y column)
   const int n_rt = max(1, (a.Q + RT - 1) / RT);
-  const int hgroups = (a.nh + HPC - 1) / HPC;
   const int rt = blockIdx.x % n_rt;
-  const int h0 = (blockIdx.x / n_rt) % hgroups * HPC;
-  const int b = blockIdx.x / (n_rt * hgroups);
-  const int h = h0 + hw;
+  const int h = blockIdx.x / n_rt % a.nh;
+  const int b = blockIdx.x / (n_rt * a.nh);
   const int r0 = rt * RT, rows = min(RT, a.Q - r0);
-  const bool active = h < a.nh && dq < a.hd;  // warp-uniform
+  const bool active = dq < a.hd;  // warp-uniform
 
   // stage chunk c's C tile, cum rows and states blocks into buffer `buf`;
   // rows past Q, state rows past hd and columns past N are zero-filled, so
   // the products below run over whole 64 x 64 tiles without branches
   auto load = [&](int buf, int c) {
-    float* Cs = sm + buf * St::SIZE;
-    float* Ss = Cs + St::C_SZ;
-    float* Es = Ss + HPC * St::S_SZ;
+    float* Cs = sm + buf * STAGE;
+    float* Ss = Cs + C_SZ;
+    float* Es = Ss + S_SZ;
     const float* Cc = a.C + b * a.c_sb + c * a.c_sc + (int64_t)r0 * a.c_si;
     constexpr int w = TS;
     if (a.c_vec) {
@@ -176,32 +170,26 @@ __global__ void __launch_bounds__(128 * HPC) ssd_state_scan_kernel(const Args a)
                   ok);
       }
     }
-    for (int e = tid; e < HPC * RT; e += THREADS) {
-      const int hh = e / RT, i = e % RT;
-      const bool ok = i < rows && h0 + hh < a.nh;
-      cp_async4(Es + e,
+    for (int i = tid; i < RT; i += THREADS) {
+      const bool ok = i < rows;
+      cp_async4(Es + i,
                 ok ? a.cum + b * a.u_sb + c * a.u_sc + (r0 + i) * a.u_si +
-                         (h0 + hh) * a.u_sh
+                         h * a.u_sh
                    : a.cum,
                 ok);
     }
-    const float* sc = a.states + b * a.s_sb + c * a.s_sc;
+    const float* sc = a.states + b * a.s_sb + c * a.s_sc + h * a.s_sh;
     if (a.s_vec) {
-      for (int e = tid; e < HPC * TS * w / 4; e += THREADS) {
-        const int hh = e / (TS * w / 4), d = e / (w / 4) % TS,
-                  n = e % (w / 4) * 4;
-        const bool ok = h0 + hh < a.nh && d < a.hd && n < a.N;
-        cp_async16(Ss + hh * St::S_SZ + d * LD + n,
-                   ok ? sc + (h0 + hh) * a.s_sh + d * a.s_sd + n : a.states,
-                   ok);
+      for (int e = tid; e < TS * w / 4; e += THREADS) {
+        const int d = e / (w / 4), n = e % (w / 4) * 4;
+        const bool ok = d < a.hd && n < a.N;
+        cp_async16(Ss + d * LD + n, ok ? sc + d * a.s_sd + n : a.states, ok);
       }
     } else {
-      for (int e = tid; e < HPC * TS * w; e += THREADS) {
-        const int hh = e / (TS * w), d = e / w % TS, n = e % w;
-        const bool ok = h0 + hh < a.nh && d < a.hd && n < a.N;
-        cp_async4(Ss + hh * St::S_SZ + d * LD + n,
-                  ok ? sc + (h0 + hh) * a.s_sh + d * a.s_sd + n * a.s_sn
-                     : a.states,
+      for (int e = tid; e < TS * w; e += THREADS) {
+        const int d = e / w, n = e % w;
+        const bool ok = d < a.hd && n < a.N;
+        cp_async4(Ss + d * LD + n, ok ? sc + d * a.s_sd + n * a.s_sn : a.states,
                   ok);
       }
     }
@@ -225,9 +213,9 @@ __global__ void __launch_bounds__(128 * HPC) ssd_state_scan_kernel(const Args a)
         active ? expf(a.totals[b * a.t_sb + c * a.t_sc + h * a.t_sh]) : 0.f;
     cp_wait<1>();
     __syncthreads();
-    const float* Cs = sm + (c & 1) * St::SIZE;
-    const float* Ss = Cs + St::C_SZ + hw * St::S_SZ;
-    const float* Es = Cs + St::C_SZ + HPC * St::S_SZ + hw * RT;
+    const float* Cs = sm + (c & 1) * STAGE;
+    const float* Ss = Cs + C_SZ;
+    const float* Es = Ss + S_SZ;
     if (active) {
       const int64_t y_si = (int64_t)a.nh * a.hd;
       float* yc = a.y + (((int64_t)b * a.nc + c) * a.Q + r0) * y_si +
@@ -345,54 +333,30 @@ __global__ void __launch_bounds__(128 * HPC) ssd_state_scan_kernel(const Args a)
   }
 }
 
-template <int HPC>
 int launch(const Args& a, cudaStream_t stream) {
   static const cudaError_t prepared = cudaFuncSetAttribute(
-      ssd_state_scan_kernel<HPC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Stage<HPC>::smem_bytes);
+      ssd_state_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
   if (prepared != cudaSuccess) return (int)prepared;
-  const int64_t ctas = (int64_t)a.B * ((a.nh + HPC - 1) / HPC) *
-                       max(1, (a.Q + RT - 1) / RT);
+  const int64_t ctas = (int64_t)a.B * a.nh * max(1, (a.Q + RT - 1) / RT);
   if (ctas >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
-  ssd_state_scan_kernel<HPC><<<(unsigned)ctas, 128 * HPC,
-                               Stage<HPC>::smem_bytes, stream>>>(a);
+  ssd_state_scan_kernel<<<(unsigned)ctas, THREADS, SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <int HPC>
-int info(int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_state_scan_kernel<HPC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Stage<HPC>::smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes at;
-  err = cudaFuncGetAttributes(&at, ssd_state_scan_kernel<HPC>);
-  if (err != cudaSuccess) return (int)err;
-  int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &ctas, ssd_state_scan_kernel<HPC>, 128 * HPC, Stage<HPC>::smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = at.numRegs;
-  out[1] = ctas;
-  out[2] = Stage<HPC>::smem_bytes;
-  out[3] = 128 * HPC;
-  out[4] = (int)at.localSizeBytes;
-  return 0;
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// All strides in elements.  hd and N at most 64; hpc (1 or 2) heads a CTA.
-// Returns cudaGetLastError() after the launch (0 on success).
+// All strides in elements.  hd and N at most 64.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int ssd_state_scan_launch(
     const void* states, const void* totals, const void* C, const void* cum,
     void* y, void* final_state, int B, int nc, int nh, int hd, int N, int Q,
     int64_t s_sb, int64_t s_sc, int64_t s_sh, int64_t s_sd, int64_t s_sn,
     int64_t t_sb, int64_t t_sc, int64_t t_sh, int64_t c_sb, int64_t c_sc,
     int64_t c_si, int64_t c_sn, int64_t u_sb, int64_t u_sc, int64_t u_si,
-    int64_t u_sh, int hpc, void* stream) {
+    int64_t u_sh, void* stream) {
   if (B == 0 || nh == 0) return 0;
   if (hd > TS || N > TS || hd < 1 || N < 1) return (int)cudaErrorInvalidValue;
   const int c_vec = c_sn == 1 && N % 4 == 0 && c_si % 4 == 0 &&
@@ -405,15 +369,27 @@ extern "C" int ssd_state_scan_launch(
          B,    nc,   nh,   hd,   N,    Q,    c_vec, s_vec,
          s_sb, s_sc, s_sh, s_sd, s_sn, t_sb, t_sc, t_sh,
          c_sb, c_sc, c_si, c_sn, u_sb, u_sc, u_si, u_sh};
-  if (hpc == 1) return launch<1>(a, (cudaStream_t)stream);
-  if (hpc == 2) return launch<2>(a, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  return launch(a, (cudaStream_t)stream);
 }
 
-// out[5]: registers a thread, CTAs an SM, dynamic shared memory, threads,
-// local memory a thread of the instance with hpc heads a CTA
-extern "C" int ssd_state_scan_info(int hpc, int* out) {
-  if (hpc == 1) return info<1>(out);
-  if (hpc == 2) return info<2>(out);
-  return (int)cudaErrorInvalidValue;
+// out[5]: registers a thread, CTAs an SM (occupancy API), dynamic shared
+// memory, threads, local memory a thread (spills) of the kernel
+extern "C" int ssd_state_scan_info(int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_state_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes at;
+  err = cudaFuncGetAttributes(&at, ssd_state_scan_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, ssd_state_scan_kernel, THREADS, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = at.numRegs;
+  out[1] = ctas;
+  out[2] = SMEM_BYTES;
+  out[3] = THREADS;
+  out[4] = (int)at.localSizeBytes;
+  return 0;
 }

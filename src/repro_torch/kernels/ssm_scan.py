@@ -24,11 +24,6 @@ import torch
 
 #: largest SSM head dim and state size the CUDA kernel takes
 KERNEL_MAX_DIM = 64
-#: heads of one batch a CTA takes (1 or 2): with 1 the row tiles of a head
-#: are sibling CTAs; with 2 the two heads also share each staged C tile.
-#: 1 is the faster of the two on the H100 (``chip_smoke.check_ssd`` times
-#: both)
-HEADS_PER_CTA = 1
 
 
 def ssd_state_scan_ref(states: torch.Tensor, totals: torch.Tensor,
@@ -82,20 +77,19 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_state_scan")
     lib.ssd_state_scan_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 16
-        + [ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_void_p])
     lib.ssd_state_scan_launch.restype = ctypes.c_int
-    lib.ssd_state_scan_info.argtypes = [ctypes.c_int,
-                                        ctypes.POINTER(ctypes.c_int)]
+    lib.ssd_state_scan_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.ssd_state_scan_info.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def kernel_info(heads_per_cta: int = HEADS_PER_CTA) -> dict:
-    """What the compiler and the occupancy API report for the instance
-    with ``heads_per_cta`` heads a CTA (needs a CUDA device)."""
+def kernel_info() -> dict:
+    """What the compiler and the occupancy API report for the kernel
+    (needs a CUDA device)."""
     out = (ctypes.c_int * 5)()
-    err = _lib().ssd_state_scan_info(heads_per_cta, out)
+    err = _lib().ssd_state_scan_info(out)
     if err != 0:
         raise RuntimeError(f"ssd_state_scan: kernel_info failed ({err})")
     return dict(registers=out[0], ctas_per_sm=out[1], smem_bytes=out[2],
@@ -103,17 +97,14 @@ def kernel_info(heads_per_cta: int = HEADS_PER_CTA) -> dict:
 
 
 def ssd_state_scan(states: torch.Tensor, totals: torch.Tensor,
-                   C: torch.Tensor, cum: torch.Tensor, *,
-                   heads_per_cta: int = HEADS_PER_CTA):
+                   C: torch.Tensor, cum: torch.Tensor):
     """The inter-chunk scan; see the module docstring.  Returns
     (y_inter (B, nc, Q, nh, hd), final_state (B, nh, hd, N)), float32 and
     contiguous.
 
     All inputs float32, any strides, in the layouts above.  On CUDA (the
     current device) hd and N are at most :data:`KERNEL_MAX_DIM`; the
-    kernel reads the inputs in place.  ``heads_per_cta`` picks the
-    kernel's instance (:data:`HEADS_PER_CTA`); both compute the same
-    values."""
+    kernel reads the inputs in place."""
     _check(states, totals, C, cum)
     if states.device.type == "cpu":
         return ssd_state_scan_ref(states, totals, C, cum)
@@ -127,9 +118,6 @@ def ssd_state_scan(states: torch.Tensor, totals: torch.Tensor,
     if hd > KERNEL_MAX_DIM or N > KERNEL_MAX_DIM:
         raise ValueError(f"ssd_state_scan: head dim {hd} or state {N} > "
                          f"{KERNEL_MAX_DIM}")
-    if heads_per_cta not in (1, 2):
-        raise ValueError(f"ssd_state_scan: heads_per_cta {heads_per_cta} "
-                         f"not 1 or 2")
     if B * nh * max(1, -(-Q // 64)) >= 2 ** 31:
         raise ValueError("ssd_state_scan: B*nh*ceil(Q/64) >= 2^31")
     y = torch.empty((B, nc, Q, nh, hd), dtype=torch.float32,
@@ -141,7 +129,7 @@ def ssd_state_scan(states: torch.Tensor, totals: torch.Tensor,
     err = _lib().ssd_state_scan_launch(
         states.data_ptr(), totals.data_ptr(), C.data_ptr(), cum.data_ptr(),
         y.data_ptr(), final.data_ptr(), B, nc, nh, hd, N, Q, *states.stride(),
-        *totals.stride(), *C.stride(), *cum.stride(), heads_per_cta,
+        *totals.stride(), *C.stride(), *cum.stride(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_state_scan: kernel launch failed "

@@ -324,17 +324,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hpc", [1, 2])
 @pytest.mark.parametrize("B,nc,nh,hd,N,Q,strided", [
     (2, 4, 3, 8, 16, 32, False), (1, 16, 8, 64, 64, 256, False),
     (2, 5, 4, 64, 64, 100, True), (1, 3, 2, 48, 40, 70, True),
     (1, 128, 112, 64, 64, 256, False),   # zamba2, one 32768-token request
 ])
-def test_kernel_matches_plain_version_on_gpu(B, nc, nh, hd, N, Q, strided,
-                                             hpc):
-    """The CUDA kernel (both instances: one or two heads a CTA) against its
-    plain version on the card, one launch per call, on contiguous and
-    strided inputs (needs a card; skipped elsewhere)."""
+def test_kernel_matches_plain_version_on_gpu(B, nc, nh, hd, N, Q, strided):
+    """The CUDA kernel against its plain version on the card, one launch
+    per call, on contiguous and strided inputs (needs a card; skipped
+    elsewhere)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     states, totals, C, cum = (torch.from_numpy(a).cuda() for a in
@@ -343,7 +341,7 @@ def test_kernel_matches_plain_version_on_gpu(B, nc, nh, hd, N, Q, strided,
         totals = cum[:, :, -1]
         states = states.transpose(3, 4).contiguous().transpose(3, 4)
     before = sc.ssd_state_scan.launches
-    y, fin = sc.ssd_state_scan(states, totals, C, cum, heads_per_cta=hpc)
+    y, fin = sc.ssd_state_scan(states, totals, C, cum)
     torch.cuda.synchronize()
     assert sc.ssd_state_scan.launches == before + 1
     yr, fr = sc.ssd_state_scan_ref(states, totals, C, cum)
