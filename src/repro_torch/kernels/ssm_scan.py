@@ -11,7 +11,10 @@ starting at zero::
 ``ssd_state_scan`` of the reference's ``kernels/ssm_scan.py``) on CUDA
 tensors, and runs :func:`ssd_state_scan_ref`, the plain PyTorch version
 (the reference's ``ssd_state_scan_ref``, a loop over the chunks), on CPU
-tensors.  A CUDA tensor launches the kernel or raises.
+tensors.  A CUDA tensor launches the kernels or raises: the source holds
+a recurrence kernel, which writes the state before each chunk into
+scratch, and a persistent kernel that computes ``y_inter`` from it on
+the tensor cores as 3xTF32.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load("ssd_state_scan")
     lib.ssd_state_scan_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 16
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 16
         + [ctypes.c_void_p])
     lib.ssd_state_scan_launch.restype = ctypes.c_int
     lib.ssd_state_scan_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -86,8 +89,8 @@ def _lib() -> ctypes.CDLL:
 
 @functools.cache
 def kernel_info() -> dict:
-    """What the compiler and the occupancy API report for the kernel
-    (needs a CUDA device)."""
+    """What the compiler and the occupancy API report for the product
+    kernel (needs a CUDA device)."""
     out = (ctypes.c_int * 5)()
     err = _lib().ssd_state_scan_info(out)
     if err != 0:
@@ -118,17 +121,22 @@ def ssd_state_scan(states: torch.Tensor, totals: torch.Tensor,
     if hd > KERNEL_MAX_DIM or N > KERNEL_MAX_DIM:
         raise ValueError(f"ssd_state_scan: head dim {hd} or state {N} > "
                          f"{KERNEL_MAX_DIM}")
-    if B * nh * max(1, -(-Q // 64)) >= 2 ** 31:
-        raise ValueError("ssd_state_scan: B*nh*ceil(Q/64) >= 2^31")
+    if B * nh >= 2 ** 31:
+        raise ValueError(f"ssd_state_scan: B*nh = {B * nh} >= 2^31")
     y = torch.empty((B, nc, Q, nh, hd), dtype=torch.float32,
                     device=states.device)
     final = torch.empty((B, nh, hd, N), dtype=torch.float32,
                         device=states.device)
     if B * nh == 0:
         return y, final
+    # the state before each chunk, written by the recurrence and read by
+    # the products (64 x 64 a block, zero-padded)
+    prefix = torch.empty((B, nc, nh, KERNEL_MAX_DIM, KERNEL_MAX_DIM),
+                         dtype=torch.float32, device=states.device)
     err = _lib().ssd_state_scan_launch(
         states.data_ptr(), totals.data_ptr(), C.data_ptr(), cum.data_ptr(),
-        y.data_ptr(), final.data_ptr(), B, nc, nh, hd, N, Q, *states.stride(),
+        y.data_ptr(), final.data_ptr(), prefix.data_ptr(), B, nc, nh, hd, N,
+        Q, *states.stride(),
         *totals.stride(), *C.stride(), *cum.stride(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
