@@ -31,6 +31,16 @@ tensor-core kernel):
   work-sharing on dts, prs-haproxy and mss, 256x256 feedback on dts,
   three seed-lanes each); the same Fig 4 cell run on the GPU and on the
   CPU, compared; and a ``torch.profiler`` breakdown of one cell;
+* the cohort path — ``run_many`` on the cells the wave gate refuses and
+  on the broadcast patterns, which go to the per-cohort engine: Fig 7a
+  (broadcast, 64 consumers) and Fig 7b (broadcast+gather, 32 consumers)
+  of the generic workload at 384 messages on dts, prs-haproxy and mss,
+  Fig 4's dstream at 4 consumers x 4096 messages on dts and Fig 6's
+  dstream feedback at 64 x 3072 on mss, three seed-lanes each, warm,
+  timed ``WALL_REPEATS`` times, every lane consuming every message with
+  no pump launch and the host's reads counted; a Fig 7b cell at 8
+  consumers on the GPU and on the CPU, compared; and a device-only
+  ``torch.profiler`` breakdown of the Fig 7b dts cell;
 * serving granite-8b at full width and depth (36 layers, random bf16
   weights from a seed), with ``attention_impl="pallas"``: the prefill
   step on 4 requests x 4096 prompt tokens (flash attention once per
@@ -97,6 +107,29 @@ MAIN_CELLS = (
 SEEDS = (0, 1000, 2000)
 #: warm timed runs of each main-path cell (median and spread reported)
 WALL_REPEATS = 3
+
+#: the cohort engine's cells, (pattern, arch, workload, consumers,
+#: messages), from the paper's grids: Fig 7a and 7b at their widest
+#: (``benchmarks/bench_fig7_broadcast_gather.py``), Fig 4's dstream at 4
+#: consumers (1024 msgs/producer, past the wave gate's 256;
+#: ``bench_fig4_work_sharing.py``) and Fig 6's dstream on mss, which the
+#: gate refuses (``bench_fig6_feedback_rtt.py``).  Broadcast cells have
+#: one producer, the others one per consumer (as the reference's
+#: ``pattern_spec``).
+COHORT_CELLS = (
+    ("broadcast", "dts", "generic", 64, 384),
+    ("broadcast", "prs-haproxy", "generic", 64, 384),
+    ("broadcast", "mss", "generic", 64, 384),
+    ("broadcast_gather", "dts", "generic", 32, 384),
+    ("broadcast_gather", "prs-haproxy", "generic", 32, 384),
+    ("broadcast_gather", "mss", "generic", 32, 384),
+    ("work_sharing", "dts", "dstream", 4, 4096),
+    ("feedback", "mss", "dstream", 64, 3072),
+)
+#: the cohort cell run on the card and on the CPU, compared
+COHORT_XCHECK = ("broadcast_gather", "prs-haproxy", "generic", 8, 384)
+#: the gather leg's replies are 1/256 of the request (``pattern_spec``)
+GATHER_REPLY_FACTOR = 1.0 / 256.0
 
 #: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
 #: causal, window, logit cap).  The first is granite-8b's prefill shape
@@ -321,6 +354,10 @@ def check_pump(dev) -> dict:
     max_err = float((got[fin] - want[fin]).abs().max().item())
     ms = _graph_ms(lambda: pump_assign(ring, t, gid, idx, valid), 200)
     plain_ms = _graph_ms(lambda: pump_assign_ref(ring, t, gid, idx, valid), 200)
+    # the launch floor: the same graph of calls at Np = 1, L = 1, where
+    # the kernel moves a few bytes
+    one = _pump_inputs(rng, 2, 64, 1, 1, "main", dev)
+    floor_ms = _graph_ms(lambda: pump_assign(*one), 200)
     call_ms = _cuda_ms(lambda: pump_assign(ring, t, gid, idx, valid), 200)
     plain_call_ms = _cuda_ms(
         lambda: pump_assign_ref(ring, t, gid, idx, valid), 200)
@@ -334,8 +371,8 @@ def check_pump(dev) -> dict:
                 replaces="src/repro/core/jax_device_loop.py:837",
                 launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes",
-                library_ms=None, cases=len(cases), call_ms=call_ms,
-                plain_call_ms=plain_call_ms)
+                library_ms=None, cases=len(cases), launch_floor_ms=floor_ms,
+                call_ms=call_ms, plain_call_ms=plain_call_ms)
 
 
 def _attn_tol(dtype: str, window: int, cap: float) -> float:
@@ -1368,21 +1405,130 @@ def profile_cell(dev) -> dict:
     return _device_rows(prof, wall, "work_sharing/dts/c1024")
 
 
+def _cohort_specs(pattern: str, arch: str, workload: str, n: int, msgs: int):
+    from repro_torch import ExperimentSpec, SimParams, get_workload
+    extra = ({"reply_factor": GATHER_REPLY_FACTOR}
+             if pattern == "broadcast_gather" else {})
+    return [ExperimentSpec(
+        pattern=pattern, workload=get_workload(workload), arch=arch,
+        n_producers=1 if pattern.startswith("broadcast") else n,
+        n_consumers=n, total_messages=msgs,
+        params=SimParams(seed=s, **extra)) for s in SEEDS]
+
+
+def _cohort_run(specs, dev) -> tuple:
+    """One ``run_many`` of ``specs`` with the launches, the cohort runs
+    and the host reads counted from 0: ``(results, wall, counts)``."""
+    import torch
+    from repro_torch import run_many
+    from repro_torch.core.torch_engine import TorchStreamSim
+    _reset_launches()
+    TorchStreamSim.stats.update(runs=0, host_reads=0)
+    t0 = time.perf_counter()
+    res = run_many(specs, device=dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, dict(_launches(), **TorchStreamSim.stats)
+
+
+def drive_cohort(dev) -> tuple[list, dict]:
+    """Every cohort cell through ``run_many`` on the card, after a warm-up
+    run of each pattern on the engine at 2 consumers, timed
+    ``WALL_REPEATS`` times:
+    every lane consumes every message (each copy, for broadcast), no cell
+    takes the wave program (no pump launch), and each ran the cohort
+    engine.  Returns the per-cell rows and the launches of the runs."""
+    from repro_torch import summarize
+    for pattern in sorted({c[0] for c in COHORT_CELLS}):
+        # 300 msgs a producer keeps the work patterns off the wave program
+        bc = pattern.startswith("broadcast")
+        _cohort_run(_cohort_specs(pattern, "dts", "generic" if bc else
+                                  "dstream", 2, 32 if bc else 600), dev)
+    rows, total = [], {}
+    for pattern, arch, wl, n, msgs in COHORT_CELLS:
+        specs = _cohort_specs(pattern, arch, wl, n, msgs)
+        walls, reads = [], []
+        for _ in range(WALL_REPEATS):
+            res, wall, counts = _cohort_run(specs, dev)
+            walls.append(wall)
+            reads.append(counts.pop("host_reads"))
+            if counts.pop("runs") < 1 or counts.get("pump_assign"):
+                raise AssertionError(f"{pattern}/{arch}: {counts}: the cell "
+                                     f"did not run the cohort engine alone")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        want = msgs * (n if pattern.startswith("broadcast") else 1)
+        for r in res:
+            if r.n_consumed != want:
+                raise AssertionError(f"{pattern}/{arch} seed "
+                                     f"{r.spec.params.seed}: consumed "
+                                     f"{r.n_consumed} of {want}")
+        sm = [summarize(r) for r in res]
+        rows.append(dict(
+            cell=f"{pattern}/{wl}/{arch}/c{n}", msgs=msgs, lanes=len(res),
+            wall_s=statistics.median(walls), wall_s_runs=walls,
+            throughput_msgs_s=[s.throughput_msgs_s for s in sm],
+            median_rtt_s=([s.median_rtt_s for s in sm] if res[0].rtts.size
+                          else None),
+            host_reads=reads[0], events=res[0].n_events,
+            us_per_event=statistics.median(walls) / res[0].n_events * 1e6))
+    return rows, total
+
+
+def cohort_cross_check(dev) -> dict:
+    """The cross-check cell on the card and on the CPU, every lane's
+    clocks compared at ``XDEV_RTOL``."""
+    import numpy as np
+    specs = _cohort_specs(*COHORT_XCHECK)
+    rg, wall_gpu, _ = _cohort_run(specs, dev)
+    rc, wall_cpu, _ = _cohort_run(specs, "cpu")
+    worst = 0.0
+    for a, b in zip(rg, rc):
+        if a.n_consumed != b.n_consumed or a.n_events != b.n_events:
+            raise AssertionError("cohort cross-check: counts differ")
+        for f in ("consume_times", "rtts", "publish_starts"):
+            x, y = getattr(a, f), getattr(b, f)
+            if y.size:
+                rel = np.abs(x - y) / np.abs(y).clip(1e-300)
+                worst = max(worst, float(rel.max()))
+    if worst > XDEV_RTOL:
+        raise AssertionError(f"cohort cuda vs cpu: max relative deviation "
+                             f"{worst} > {XDEV_RTOL}")
+    pattern, arch, wl, n, msgs = COHORT_XCHECK
+    return dict(cell=f"{pattern}/{wl}/{arch}/c{n}/{msgs}msgs",
+                lanes=len(SEEDS), max_rel_dev=worst, rtol=XDEV_RTOL,
+                wall_s_gpu=wall_gpu, wall_s_cpu=wall_cpu)
+
+
+def profile_cohort(dev) -> dict:
+    """Device busy time, idle share and the top kernels of one warm run of
+    the Fig 7b dts cell, from ``torch.profiler`` (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    specs = _cohort_specs(*COHORT_CELLS[3])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall, counts = _cohort_run(specs, dev)
+    out = _device_rows(prof, wall, "broadcast_gather/generic/dts/c32")
+    out["host_reads"] = counts["host_reads"]
+    return out
+
+
 def _device_rows(prof, wall: float, cell: str, share_of: str = "") -> dict:
     """Device busy time, idle share of ``wall`` and the top kernels of a
     ``torch.profiler`` run; with ``share_of``, the device time, launches
-    and share of busy time of the kernels whose name holds it."""
+    and share of busy time of the kernels whose name holds it.  Summed
+    from the profiler's raw device events (kernels, copies), which skips
+    building an event tree: a cohort run has a million kernels."""
     import torch
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies): the CPU-side op
-        # events carry the same device time again
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    agg: dict = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        dt = ev.self_device_time_total
-        if dt:
-            rows.append((dt, ev.count, ev.key))
-    rows.sort(reverse=True)
+        a = agg.setdefault(ev.name(), [0.0, 0])
+        a[0] += ev.duration_ns() / 1e3
+        a[1] += 1
+    rows = sorted(((us, n, name) for name, (us, n) in agg.items() if us),
+                  reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     out = dict(cell=cell, wall_s=wall,
                device_busy_s=busy if rows else "not measured",
@@ -1477,9 +1623,16 @@ def main() -> int:
         print("main path:", json.dumps(r))
     by_path = {"wave": {"pump_assign": pump_launches}}
     done("wave cells")
+    rows, by_path["cohort"] = drive_cohort(dev)
+    for r in rows:
+        print("cohort cells:", json.dumps(r))
+    done("cohort cells")
     print("cross-check:", json.dumps(cross_check(dev)))
+    print("cohort cross-check:", json.dumps(cohort_cross_check(dev)))
+    done("cross-checks")
     print("profile:", json.dumps(profile_cell(dev)))
-    done("wave cross-check and profile")
+    print("cohort profile:", json.dumps(profile_cohort(dev)))
+    done("profiles")
     by_path.update(serve("granite-8b", dev, done, walk_layers, walk_decode))
     by_path.update(serve("zamba2-7b", dev, done, walk_ssd))
     print("phase seconds:", json.dumps(phase_s))

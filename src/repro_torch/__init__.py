@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of the reference package ``repro``.
 
-* StreamSim's wave program: ``run_many(specs, device="cuda")`` runs
-  work-sharing and feedback experiments as whole-run programs on the GPU
-  (pass ``device="cpu"`` to run them on the CPU), with the pump window
-  assignment as a hand-written CUDA kernel.
+* StreamSim: ``run_many(specs, device="cuda")`` runs experiments on the
+  GPU (pass ``device="cpu"`` to run them on the CPU).  Work-sharing and
+  feedback cells the wave program's regime gate accepts run as
+  whole-run programs, with the pump window assignment as a hand-written
+  CUDA kernel; every other cell (the gate's refusals, broadcast and
+  broadcast+gather) runs on the per-cohort engine, ``TorchStreamSim``.
+  Cells where broker flow control is reachable raise.
 * Dense-transformer serving: ``models.zoo.build_model(cfg,
   device="cuda")``, ``launch.steps.build_prefill_step`` and
   ``launch.serve.generate``, with flash attention as a hand-written CUDA

@@ -1,13 +1,16 @@
 """The host-side cell: one experiment, with its stacked seed-lanes, as
-the wave program's static builder reads it.
+both of the port's StreamSim engines read it.
 
-This is the part of the reference's vectorized engine that the wave
-program needs, without its cohort event loop: the architecture
+:class:`Cell` is the part of the reference's vectorized engine that the
+wave program and the per-cohort engine share: the architecture
 configured for the cell, tenant columns, the per-lane jitter streams,
-the consumer processing time, the publish round (with the saturation
-rule), the work-pattern queue topology, the static flow-event probe,
-the bottleneck cost model, and the per-lane result contract.  Values
-and rules are the reference's, so the wave program sees the same cell.
+the consumer processing time, the publish round with the saturation
+rule (and the cohort engine's event horizon), the work-pattern queue
+topology, the static flow-event probe, the bottleneck cost model, and
+the per-lane result contract.  Values and rules are the reference's, so
+either engine sees the same cell.  :class:`WaveCell` is the cell the
+wave program builds from (``core/torch_device_loop.py``); the cohort
+engine (``core/torch_engine.py``) subclasses :class:`Cell` directly.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ SATURATION_MAX_CLIENTS = 64
 
 #: the patterns the wave program formulates
 WAVE_PATTERNS = ("work_sharing", "feedback")
+#: every pattern of the cohort engine
+PATTERNS = WAVE_PATTERNS + ("broadcast", "broadcast_gather")
 
 
 def _res_class(el: Optional[PathElement]) -> Optional[str]:
@@ -75,8 +80,8 @@ def _stack_key(spec: ExperimentSpec) -> tuple:
                 spec.params, seed=0).__dict__.items())))
 
 
-class WaveCell:
-    """One work-sharing/feedback cell with its stacked seed-lanes.
+class Cell:
+    """One experiment with its stacked seed-lanes.
 
     ``stack_seeds[0]`` is the pilot lane and must equal ``params.seed``;
     each lane draws its jitter from its own ``np.random.default_rng``
@@ -86,8 +91,8 @@ class WaveCell:
                  inventory: Optional[ClusterInventory] = None,
                  arch: Optional[Architecture] = None,
                  stack_seeds: Optional[list[int]] = None) -> None:
-        if spec.pattern not in WAVE_PATTERNS:
-            raise ValueError(f"pattern {spec.pattern!r} is not wave-formulated")
+        if spec.pattern not in PATTERNS:
+            raise ValueError(f"unknown pattern {spec.pattern!r}")
         self.spec = spec
         self.p = spec.params
         self.inv = inventory or ClusterInventory()
@@ -114,16 +119,29 @@ class WaveCell:
                         if self.p.consumer_proc_s is not None
                         else spec.workload.proc_time_s())
         self.n_events = 0
-        # the publish round, with the saturation rule: at low flow counts
-        # with a saturated shared DSN-side pipe, interleave near
-        # per-message granularity
+        # how far past the next event's key a cohort batch may serve
+        # ahead (the cohort engine's horizon): auto mode widens it with
+        # the client count
+        if self.p.vec_horizon_s is not None:
+            self._slack = self.p.vec_horizon_s
+        else:
+            self._slack = max(1e-3, 1e-3 * (spec.n_producers
+                                            + spec.n_consumers) / 16.0)
+        # the saturation rule: at low flow counts with a saturated shared
+        # DSN-side pipe, interleave near per-message granularity (a
+        # publish round of 2, a quarter of the horizon, and the pump's
+        # per-message window-aware release)
         self._round = self.p.vec_round if self.p.vec_round is not None else 8
+        self._fine_pump = False
         self.dsn_utilization, self.publish_surplus = self._cost_model()
         n_clients = spec.n_producers + spec.n_consumers
         if (n_clients <= SATURATION_MAX_CLIENTS
-                and self.dsn_utilization >= SATURATION_UTIL
-                and self.p.vec_round is None):
-            self._round = 2
+                and self.dsn_utilization >= SATURATION_UTIL):
+            self._fine_pump = True
+            if self.p.vec_round is None:
+                self._round = 2
+            if self.p.vec_horizon_s is None:
+                self._slack *= 0.25
 
     def _work_topology(self) -> tuple[int, list[np.ndarray],
                                       list[list[int]], list[int]]:
@@ -164,9 +182,13 @@ class WaveCell:
         size = spec.workload.payload_bytes
         cap = (p.queue_max_bytes // size) if p.queue_max_bytes else None
         per_producer = spec.total_messages // max(1, spec.n_producers)
-        nq, _, _, q_pubs = self._work_topology()
-        per_q = per_producer * spec.n_producers / nq
-        credit = FLOW_CREDIT * min(q_pubs)
+        if spec.pattern in WAVE_PATTERNS:
+            nq, _, _, q_pubs = self._work_topology()
+            per_q = per_producer * spec.n_producers / nq
+            credit = FLOW_CREDIT * min(q_pubs)
+        else:
+            per_q = per_producer
+            credit = FLOW_CREDIT
         return ((cap is not None and cap < per_q)
                 or credit < self.publish_surplus * per_q)
 
@@ -185,44 +207,60 @@ class WaveCell:
         tcols = self._tenant_cols
         p_t = (lambda pr: ((pr // self._ppt,) if tcols else ()))
         c_t = (lambda c: ((c // self._cpt,) if tcols else ()))
-        nq, q_consumers, prod_queues, _ = self._work_topology()
-        q_home = [q % inv.n_dsn for q in range(nq)]
-        reply_home = [(nq + pr) % inv.n_dsn for pr in range(nP)]
-        for pr in range(nP):
-            for qi in prod_queues[pr]:
-                legs.append(("publish_path",
-                             (pr % inv.n_producer_nodes, pr % inv.n_dsn,
-                              q_home[qi]) + p_t(pr),
-                             1.0 / (nP * len(prod_queues[pr])), size))
-        for qi in range(nq):
-            members = q_consumers[qi]
-            for c in members:
-                legs.append(("delivery_path",
-                             ((int(c) + 1) % inv.n_dsn, q_home[qi],
-                              int(c) % inv.n_consumer_nodes)
-                             + c_t(int(c)),
-                             1.0 / (nq * len(members)), size))
-        if spec.pattern == "feedback":
-            # collapse the (consumer x producer) cross product over the
-            # <= n_dsn distinct reply homes, tenant by tenant
-            T = (spec.tenants if spec.tenant_isolation == "vhost" else 1)
-            ppt, cpt = nP // T, nC // T
-            for t in range(T):
-                home_w: dict[int, float] = {}
-                for pr in range(t * ppt, (t + 1) * ppt):
-                    h = reply_home[pr]
-                    home_w[h] = home_w.get(h, 0.0) + 1.0 / ppt
-                for c in range(t * cpt, (t + 1) * cpt):
-                    for h, w in home_w.items():
-                        legs.append(("reply_publish_path",
-                                     (c % inv.n_consumer_nodes,
-                                      (c + 1) % inv.n_dsn, h) + c_t(c),
-                                     w / nC, rsize))
+        if spec.pattern in WAVE_PATTERNS:
+            nq, q_consumers, prod_queues, _ = self._work_topology()
+            q_home = [q % inv.n_dsn for q in range(nq)]
+            reply_home = [(nq + pr) % inv.n_dsn for pr in range(nP)]
             for pr in range(nP):
-                legs.append(("reply_delivery_path",
-                             (reply_home[pr], pr % inv.n_dsn,
-                              pr % inv.n_producer_nodes) + p_t(pr),
-                             1.0 / nP, rsize))
+                for qi in prod_queues[pr]:
+                    legs.append(("publish_path",
+                                 (pr % inv.n_producer_nodes, pr % inv.n_dsn,
+                                  q_home[qi]) + p_t(pr),
+                                 1.0 / (nP * len(prod_queues[pr])), size))
+            for qi in range(nq):
+                members = q_consumers[qi]
+                for c in members:
+                    legs.append(("delivery_path",
+                                 ((int(c) + 1) % inv.n_dsn, q_home[qi],
+                                  int(c) % inv.n_consumer_nodes)
+                                 + c_t(int(c)),
+                                 1.0 / (nq * len(members)), size))
+            if spec.pattern == "feedback":
+                # collapse the (consumer x producer) cross product over the
+                # <= n_dsn distinct reply homes, tenant by tenant
+                T = (spec.tenants if spec.tenant_isolation == "vhost" else 1)
+                ppt, cpt = nP // T, nC // T
+                for t in range(T):
+                    home_w: dict[int, float] = {}
+                    for pr in range(t * ppt, (t + 1) * ppt):
+                        h = reply_home[pr]
+                        home_w[h] = home_w.get(h, 0.0) + 1.0 / ppt
+                    for c in range(t * cpt, (t + 1) * cpt):
+                        for h, w in home_w.items():
+                            legs.append(("reply_publish_path",
+                                         (c % inv.n_consumer_nodes,
+                                          (c + 1) % inv.n_dsn, h) + c_t(c),
+                                         w / nC, rsize))
+                for pr in range(nP):
+                    legs.append(("reply_delivery_path",
+                                 (reply_home[pr], pr % inv.n_dsn,
+                                  pr % inv.n_producer_nodes) + p_t(pr),
+                                 1.0 / nP, rsize))
+        else:
+            gather_home = nC % inv.n_dsn
+            legs.append(("publish_path", (0, 0, 0), 1.0 / nC, size))
+            for c in range(nC):
+                legs.append(("delivery_path",
+                             ((c + 1) % inv.n_dsn, c % inv.n_dsn,
+                              c % inv.n_consumer_nodes), 1.0 / nC, size))
+            if spec.pattern == "broadcast_gather":
+                for c in range(nC):
+                    legs.append(("reply_publish_path",
+                                 (c % inv.n_consumer_nodes,
+                                  (c + 1) % inv.n_dsn, gather_home),
+                                 1.0 / nC, rsize))
+                legs.append(("reply_delivery_path", (gather_home, 0, 0),
+                             1.0, rsize))
         cost: dict[str, float] = {}
         pub_cost: dict[str, float] = {}
         for flow, combo, w, sz in legs:
@@ -258,16 +296,21 @@ class WaveCell:
     def _result(self, spec: ExperimentSpec, consume_t: np.ndarray,
                 rtts: Optional[np.ndarray],
                 pub_start: np.ndarray) -> RunResult:
-        # arrays are indexed pr*per_producer + i, so producer attribution
-        # falls out of the finite-entry indices
+        # arrays are indexed pr*per_producer + i (work patterns) or
+        # c*per_producer + i (broadcast, one producer), so producer
+        # attribution falls out of the finite-entry indices
         fin_c = np.isfinite(consume_t)
         consume_t = consume_t[fin_c]
         fin_r = np.isfinite(rtts) if rtts is not None else None
         r = rtts[fin_r] if rtts is not None else np.zeros(0)
         per_producer = max(1, spec.total_messages // spec.n_producers)
-        cp = np.flatnonzero(fin_c) // per_producer
-        rp = (np.flatnonzero(fin_r) // per_producer
-              if fin_r is not None else np.zeros(0, dtype=np.int64))
+        if spec.pattern in WAVE_PATTERNS:
+            cp = np.flatnonzero(fin_c) // per_producer
+            rp = (np.flatnonzero(fin_r) // per_producer
+                  if fin_r is not None else np.zeros(0, dtype=np.int64))
+        else:
+            cp = np.zeros(consume_t.size, dtype=np.int64)
+            rp = np.zeros(r.size, dtype=np.int64)
         top = float(consume_t.max()) if consume_t.size else 0.0
         if r.size:
             top = max(top, float(r.max()))
@@ -278,3 +321,15 @@ class WaveCell:
             publish_starts=np.sort(pub_start),
             sim_time=top, n_events=self.n_events,
             consume_producers=cp, rtt_producers=rp)
+
+
+class WaveCell(Cell):
+    """A work-sharing/feedback cell, as the wave program builds it."""
+
+    def __init__(self, spec: ExperimentSpec,
+                 inventory: Optional[ClusterInventory] = None,
+                 arch: Optional[Architecture] = None,
+                 stack_seeds: Optional[list[int]] = None) -> None:
+        if spec.pattern not in WAVE_PATTERNS:
+            raise ValueError(f"pattern {spec.pattern!r} is not wave-formulated")
+        super().__init__(spec, inventory, arch, stack_seeds)

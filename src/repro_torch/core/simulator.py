@@ -4,8 +4,9 @@ gate every engine applies.
 
 A framework-free copy of the types of the reference package's
 ``simulator`` module.  :class:`SimParams` keeps the fields the wave
-program reads, with the reference's names, defaults and validation; the
-engine selector and the chaos schedule are not part of this package.
+program and the per-cohort engine read, with the reference's names,
+defaults and validation; the engine selector and the chaos schedule are
+not part of this package (``run_many`` routes each cell itself).
 """
 
 from __future__ import annotations
@@ -29,16 +30,26 @@ class SimParams:
     reply_factor: float = 1.0       # reply size = factor * request size
     jitter: float = 0.03            # +/- service-time jitter (CDF spread)
     seed: int = 0
+    #: the cohort engine's safety caps: it stops serving past this many
+    #: message-hops or this simulated time
+    max_events: int = 30_000_000
+    max_sim_time: float = 36_000.0
     consumer_proc_s: Optional[float] = None   # override per-workload default
     #: per-data-queue byte cap (None = the broker's RAM-budget default).
-    #: Small caps make flow-control events reachable, which the wave
-    #: program's regime gate rejects.
+    #: Small caps make flow-control events reachable, which neither the
+    #: wave program nor the cohort engine of this package takes yet.
     queue_max_bytes: Optional[int] = None
     #: per-producer messages per publish round; must be a sub-multiple of
     #: the confirm window.  None auto-tunes (8, shrunk to 2 when a shared
     #: DSN-side pipe is saturated and few flows are in play).  The wave
     #: program bounds its generation size by this round.
     vec_round: Optional[int] = None
+    #: cohort engine: how far (seconds) past the next event's key a
+    #: cohort may be served in one batch; 0 enforces strict global time
+    #: ordering at every shared resource.  None auto-scales with the
+    #: client count and shrinks alongside ``vec_round`` under detected
+    #: saturation.
+    vec_horizon_s: Optional[float] = None
 
     def __post_init__(self) -> None:
         if self.confirm_window < 2:
@@ -66,11 +77,14 @@ class SimParams:
                     f"vec_round={self.vec_round} must be a sub-multiple of "
                     f"confirm_window={self.confirm_window} so every round "
                     f"is gated by whole earlier rounds")
+        if self.vec_horizon_s is not None and self.vec_horizon_s < 0:
+            raise ValueError(
+                f"vec_horizon_s must be >= 0, got {self.vec_horizon_s}")
 
 
 @dataclasses.dataclass
 class ExperimentSpec:
-    pattern: str                    # work_sharing | feedback
+    pattern: str            # work_sharing | feedback | broadcast(_gather)
     workload: Workload
     arch: str                       # architecture name for make_architecture
     n_producers: int

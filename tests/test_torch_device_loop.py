@@ -14,7 +14,8 @@ entry point ``run_many``, against the reference's NumPy oracle.
 * **batching** — cell-axis pads are inert and lane 0 of a stacked run is
   the solo run, bitwise;
 * **regime gate and device default** — the same ``(ok, why)`` as the
-  reference, a raise for a gated cell, and a raise for ``device="cuda"``
+  reference, the cohort engine for a gated cell (a raise only where
+  flow-control events are reachable), and a raise for ``device="cuda"``
   without a GPU.
 
 Cells stay small: the oracle's segmented max scan is a Python loop.
@@ -234,12 +235,26 @@ def test_regime_gate_matches_reference():
 
 
 def test_run_many_raises_on_a_gated_cell():
-    _, port = _pair(arch="mss")
-    with pytest.raises(ValueError, match="mss"):
+    """A cell the wave gate refuses no longer raises: it runs on the
+    per-cohort engine and gives the reference's vectorized results (mss
+    feedback, a broadcast+gather cell).  Only a gated cell with reachable
+    flow-control events still raises, with the reason."""
+    seeds = (0, 1000)
+    _, gated = _pair(arch="mss")
+    assert not tdl._device_loop_ok(WaveCell(gated))[0]
+    for kw in (dict(arch="mss"), dict(pattern="broadcast_gather", npr=1)):
+        pairs = [_pair(seed=s, jitter=0.02, **kw) for s in seeds]
+        got = repro_torch.run_many([p for _, p in pairs], device="cpu")
+        want = VectorizedStreamSim(pairs[0][0],
+                                   stack_seeds=list(seeds)).run_stacked()
+        for g, w in zip(got, want):
+            assert g.n_consumed == w.n_consumed > 0
+            for f in ("consume_times", "rtts", "publish_starts"):
+                np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                           rtol=1e-12, atol=0, err_msg=f)
+    _, port = _pair(queue_max_bytes=64 * 1024)
+    with pytest.raises(ValueError, match="flow-control events"):
         repro_torch.run_many([port], device="cpu")
-    with pytest.raises(ValueError, match="wave-formulated"):
-        repro_torch.run_many([dataclasses.replace(port, pattern="broadcast_gather")],
-                             device="cpu")
 
 
 def test_run_many_reports_infeasible_cells():

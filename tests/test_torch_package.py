@@ -2,7 +2,8 @@
 
 * **import hygiene** — the port imports neither ``jax`` nor anything of
   the reference package ``repro``, checked in a fresh interpreter and by
-  a scan of every import statement in the port and ``chip_smoke.py``;
+  a scan of every import statement in the port, ``chip_smoke.py`` and
+  the chip probes;
 * **its own copies agree** — the framework-free modules the port keeps
   its own copy of (workloads, architectures, parameters, metrics) give
   the reference's values;
@@ -34,7 +35,7 @@ from repro_torch.core.simulator import RunResult
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "chip_probes").glob("*.py"))
 
 
 def _env():
@@ -120,8 +121,11 @@ def test_sim_params_keep_reference_defaults_and_validation():
     ref = RefParams()
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert {"vec_horizon_s", "max_events", "max_sim_time"} <= {
+        f.name for f in dataclasses.fields(port)}
     for bad in (dict(confirm_window=1), dict(prefetch=0),
-                dict(queue_max_bytes=0), dict(vec_round=3)):
+                dict(queue_max_bytes=0), dict(vec_round=3),
+                dict(vec_horizon_s=-1e-3)):
         with pytest.raises(ValueError):
             repro_torch.SimParams(**bad)
         with pytest.raises(ValueError):
