@@ -18,11 +18,11 @@ recurrence scans along the last dim, and lane 0 mirrored on the host
 bit for bit.  Lane 0 is the pilot: as in the reference, its clock
 decides every order and branch (service order, the heap key, the event
 horizon, the pump's window choice, the ack batching), so those
-decisions read the host mirror.  A mirror is refreshed from the device
-only where the device computed something the host cannot repeat
-exactly, a scan: one read of lane 0 per served hop, and one per landed
-consumer batch.  Elementwise steps (a latency, a window gate) are
-repeated on the host in the same float64 arithmetic.  Jitter comes from
+decisions read the host mirror.  The host repeats, in the same float64
+arithmetic, every step the device takes elementwise (a latency, a
+window gate, a lone member's FIFO step: one max and one add), and reads
+lane 0 back only after a scan of more than one member, whose sums the
+card may associate differently.  Jitter comes from
 the reference's per-lane NumPy generators in the reference's event
 order, drawn on the host and moved to the device.  ``host_reads``
 counts the device-to-host reads.
