@@ -41,6 +41,16 @@ tensor-core kernel):
   no pump launch and the host's reads counted; a Fig 7b cell at 8
   consumers on the GPU and on the CPU, compared; and a device-only
   ``torch.profiler`` breakdown of the Fig 7b dts cell;
+* the flow cells — ``run_many`` on two overflow-regime cells of
+  ``benchmarks/bench_overflow_regime.py`` (feedback of dstream on dts
+  under a byte cap: the parity cell, 4 x 4, and the scale smoke, 64 x
+  64, 8192 messages each), which take the cohort engine's credit flow
+  and reject-publish overflow, three seed-lanes each, warm, timed
+  ``WALL_REPEATS`` times: every lane consuming every message and
+  rejecting publishes (the parity cell's also withholding confirms), no
+  confirm left withheld, no pump launch; and a work-sharing 1 x 1 cell
+  under a 424-message cap on the GPU and on the CPU, compared, counters
+  exactly;
 * serving granite-8b at full width and depth (36 layers, random bf16
   weights from a seed), with ``attention_impl="pallas"``: the prefill
   step on 4 requests x 4096 prompt tokens (flash attention once per
@@ -130,6 +140,26 @@ COHORT_CELLS = (
 COHORT_XCHECK = ("broadcast_gather", "prs-haproxy", "generic", 8, 384)
 #: the gather leg's replies are 1/256 of the request (``pattern_spec``)
 GATHER_REPLY_FACTOR = 1.0 / 256.0
+
+#: the overflow-regime parameters (``patterns.OVERFLOW_STRESS_DEFAULTS``):
+#: a small confirm window, slow consumers
+OVERFLOW_STRESS = dict(confirm_window=64, prefetch=16, ack_batch=4,
+                       consumer_proc_s=2e-3)
+#: the flow cells, feedback of dstream on dts, one producer a consumer,
+#: from ``benchmarks/bench_overflow_regime.py``: (name, consumers,
+#: messages, byte cap in messages, parameters over OVERFLOW_STRESS).  The
+#: parity cell's cap sits 6% above the credit threshold (400 a producer)
+#: with jitter off, so both mechanisms fire; the scale smoke's consumers
+#: take 250 µs each per consumer, so 64 producers outpace the drain and
+#: the queues pin at their cap (reject-publish alone)
+FLOW_CELLS = (
+    ("parity", 4, 8192, int(400 * 4 * 1.06), dict(jitter=0.0)),
+    ("scale smoke", 64, 8192, 2048, dict(consumer_proc_s=250e-6 * 64)),
+)
+#: the flow cell run on the card and on the CPU, compared: work sharing
+#: of dstream on dts, 1 x 1, 1536 msgs, a 424-message cap (both
+#: mechanisms)
+FLOW_XCHECK = ("work_sharing", 1, 1536, 424, dict(consumer_proc_s=5e-3))
 
 #: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
 #: causal, window, logit cap).  The first is granite-8b's prefill shape
@@ -1423,7 +1453,7 @@ def _cohort_run(specs, dev) -> tuple:
     from repro_torch import run_many
     from repro_torch.core.torch_engine import TorchStreamSim
     _reset_launches()
-    TorchStreamSim.stats.update(runs=0, host_reads=0)
+    TorchStreamSim.stats.update(runs=0, host_reads=0, withheld=0)
     t0 = time.perf_counter()
     res = run_many(specs, device=dev)
     if torch.device(dev).type == "cuda":
@@ -1453,7 +1483,8 @@ def drive_cohort(dev) -> tuple[list, dict]:
             res, wall, counts = _cohort_run(specs, dev)
             walls.append(wall)
             reads.append(counts.pop("host_reads"))
-            if counts.pop("runs") < 1 or counts.get("pump_assign"):
+            if (counts.pop("runs") < 1 or counts.get("pump_assign")
+                    or counts.pop("withheld")):
                 raise AssertionError(f"{pattern}/{arch}: {counts}: the cell "
                                      f"did not run the cohort engine alone")
             for k, v in counts.items():
@@ -1474,6 +1505,97 @@ def drive_cohort(dev) -> tuple[list, dict]:
             host_reads=reads[0], events=res[0].n_events,
             us_per_event=statistics.median(walls) / res[0].n_events * 1e6))
     return rows, total
+
+
+def _flow_specs(pattern: str, n: int, msgs: int, cap: int, over: dict):
+    from repro_torch import ExperimentSpec, SimParams, get_workload
+    wl = get_workload("dstream")
+    params = dict(OVERFLOW_STRESS, queue_max_bytes=cap * wl.payload_bytes,
+                  **over)
+    return [ExperimentSpec(pattern=pattern, workload=wl, arch="dts",
+                           n_producers=n, n_consumers=n, total_messages=msgs,
+                           params=SimParams(seed=s, **params))
+            for s in SEEDS]
+
+
+def drive_flow(dev) -> tuple[list, dict]:
+    """Every flow cell through ``run_many`` on the card, after a warm-up
+    run of a small flow cell, timed ``WALL_REPEATS`` times: every lane
+    consumes every message, rejects publishes (and, in the parity cell,
+    withholds confirms), no confirm is left withheld, no cell takes the
+    wave program (no pump launch), and each ran the cohort engine.
+    Returns the per-cell rows and the launches of the runs."""
+    from repro_torch import summarize
+    _cohort_run(_flow_specs("feedback", 2, 512, 48, {}), dev)
+    rows, total = [], {}
+    for name, n, msgs, cap, over in FLOW_CELLS:
+        specs = _flow_specs("feedback", n, msgs, cap, over)
+        walls, reads = [], []
+        for _ in range(WALL_REPEATS):
+            res, wall, counts = _cohort_run(specs, dev)
+            walls.append(wall)
+            reads.append(counts.pop("host_reads"))
+            if (counts.pop("runs") < 1 or counts.get("pump_assign")
+                    or counts.pop("withheld")):
+                raise AssertionError(f"flow {name}: {counts}: the cell did "
+                                     f"not run the cohort engine alone, or "
+                                     f"left a confirm withheld")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        rej = [r.rejected_publishes for r in res]
+        blk = [r.blocked_confirms for r in res]
+        for r in res:
+            if r.n_consumed != msgs:
+                raise AssertionError(f"flow {name} seed {r.spec.params.seed}"
+                                     f": consumed {r.n_consumed} of {msgs}")
+        if min(rej) <= 0 or (name == "parity" and min(blk) <= 0):
+            raise AssertionError(f"flow {name}: rejected {rej}, blocked "
+                                 f"{blk}: flow control did not fire in "
+                                 f"every lane")
+        sm = [summarize(r) for r in res]
+        rows.append(dict(
+            cell=f"{name}: feedback/dstream/dts/c{n}", msgs=msgs,
+            cap_msgs=cap, lanes=len(res), wall_s=statistics.median(walls),
+            wall_s_runs=walls, events=res[0].n_events,
+            us_per_event=statistics.median(walls) / res[0].n_events * 1e6,
+            host_reads=reads[0], host_reads_runs=reads, rejected=rej,
+            blocked=blk,
+            throughput_msgs_s=[s.throughput_msgs_s for s in sm],
+            median_rtt_s=[s.median_rtt_s for s in sm]))
+    return rows, total
+
+
+def flow_cross_check(dev) -> dict:
+    """The flow cross-check cell on the card and on the CPU: every lane's
+    clocks compared at ``XDEV_RTOL``, its counters exactly."""
+    import numpy as np
+    pattern, n, msgs, cap, over = FLOW_XCHECK
+    specs = _flow_specs(pattern, n, msgs, cap, over)
+    rg, wall_gpu, _ = _cohort_run(specs, dev)
+    rc, wall_cpu, _ = _cohort_run(specs, "cpu")
+    worst = 0.0
+    for a, b in zip(rg, rc):
+        for f in ("n_consumed", "n_events", "rejected_publishes",
+                  "blocked_confirms"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"flow cross-check: {f} differs: "
+                                     f"{getattr(a, f)} vs {getattr(b, f)}")
+        for f in ("consume_times", "rtts", "publish_starts"):
+            x, y = getattr(a, f), getattr(b, f)
+            if y.size:
+                rel = np.abs(x - y) / np.abs(y).clip(1e-300)
+                worst = max(worst, float(rel.max()))
+    if worst > XDEV_RTOL:
+        raise AssertionError(f"flow cuda vs cpu: max relative deviation "
+                             f"{worst} > {XDEV_RTOL}")
+    if not all(r.rejected_publishes and r.blocked_confirms for r in rg):
+        raise AssertionError("flow cross-check: a lane neither rejected "
+                             "nor withheld")
+    return dict(cell=f"{pattern}/dstream/dts/c{n}/{msgs}msgs/cap{cap}",
+                lanes=len(SEEDS), max_rel_dev=worst, rtol=XDEV_RTOL,
+                rejected=[r.rejected_publishes for r in rg],
+                blocked=[r.blocked_confirms for r in rg],
+                wall_s_gpu=wall_gpu, wall_s_cpu=wall_cpu)
 
 
 def cohort_cross_check(dev) -> dict:
@@ -1627,8 +1749,13 @@ def main() -> int:
     for r in rows:
         print("cohort cells:", json.dumps(r))
     done("cohort cells")
+    rows, by_path["flow"] = drive_flow(dev)
+    for r in rows:
+        print("flow cells:", json.dumps(r))
+    done("flow cells")
     print("cross-check:", json.dumps(cross_check(dev)))
     print("cohort cross-check:", json.dumps(cohort_cross_check(dev)))
+    print("flow cross-check:", json.dumps(flow_cross_check(dev)))
     done("cross-checks")
     print("profile:", json.dumps(profile_cell(dev)))
     print("cohort profile:", json.dumps(profile_cohort(dev)))

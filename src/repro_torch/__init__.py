@@ -4,9 +4,10 @@
   GPU (pass ``device="cpu"`` to run them on the CPU).  Work-sharing and
   feedback cells the wave program's regime gate accepts run as
   whole-run programs, with the pump window assignment as a hand-written
-  CUDA kernel; every other cell (the gate's refusals, broadcast and
-  broadcast+gather) runs on the per-cohort engine, ``TorchStreamSim``.
-  Cells where broker flow control is reachable raise.
+  CUDA kernel; every other cell (the gate's refusals, among them every
+  cell where the broker's credit flow or reject-publish overflow is
+  reachable, and broadcast and broadcast+gather) runs on the per-cohort
+  engine, ``TorchStreamSim``.
 * Dense-transformer serving: ``models.zoo.build_model(cfg,
   device="cuda")``, ``launch.steps.build_prefill_step`` and
   ``launch.serve.generate``, with flash attention as a hand-written CUDA

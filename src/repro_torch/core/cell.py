@@ -7,8 +7,9 @@ configured for the cell, tenant columns, the per-lane jitter streams,
 the consumer processing time, the publish round with the saturation
 rule (and the cohort engine's event horizon), the work-pattern queue
 topology, the static flow-event probe, the bottleneck cost model, and
-the per-lane result contract.  Values and rules are the reference's, so
-either engine sees the same cell.  :class:`WaveCell` is the cell the
+the per-lane result contract (with each lane's flow-control counters).
+Values and rules are the reference's, so either engine sees the same
+cell.  :class:`WaveCell` is the cell the
 wave program builds from (``core/torch_device_loop.py``); the cohort
 engine (``core/torch_engine.py``) subclasses :class:`Cell` directly.
 """
@@ -295,7 +296,8 @@ class Cell:
 
     def _result(self, spec: ExperimentSpec, consume_t: np.ndarray,
                 rtts: Optional[np.ndarray],
-                pub_start: np.ndarray) -> RunResult:
+                pub_start: np.ndarray, rejected: int = 0,
+                blocked: int = 0) -> RunResult:
         # arrays are indexed pr*per_producer + i (work patterns) or
         # c*per_producer + i (broadcast, one producer), so producer
         # attribution falls out of the finite-entry indices
@@ -319,6 +321,7 @@ class Cell:
             consume_times=consume_t,
             rtts=r,
             publish_starts=np.sort(pub_start),
+            rejected_publishes=rejected, blocked_confirms=blocked,
             sim_time=top, n_events=self.n_events,
             consume_producers=cp, rtt_producers=rp)
 

@@ -5,9 +5,11 @@ differ only by seed stack into seed-lanes of one run (at most
 :data:`STACK_MAX_LANES` per run).  A work-sharing or feedback cell that
 the wave program's regime gate accepts goes to the wave program, and
 structurally identical wave runs share the cell axis of one program;
-every other cell (the gate's refusals, broadcast and broadcast+gather)
-goes to the per-cohort engine, :class:`TorchStreamSim`.  A cell where
-broker flow-control events are reachable raises with the reason.
+every other cell (the gate's refusals, among them every cell where the
+broker's credit flow or reject-publish overflow is reachable, and
+broadcast and broadcast+gather) goes to the per-cohort engine,
+:class:`TorchStreamSim`, which reports each lane's rejected publishes
+and withheld confirms.
 """
 
 from __future__ import annotations
@@ -33,9 +35,8 @@ def run_many(specs: Sequence[ExperimentSpec], device: "torch.device | str" = "cu
     """Run several experiments on ``device`` (the GPU unless the caller
     asks for ``"cpu"``).  Returns one :class:`RunResult` per spec, in
     input order; infeasible specs come back as ``feasible=False``
-    results.  Raises ``ValueError`` for a cell with reachable flow-control
-    events or an unknown pattern, and ``RuntimeError`` when ``device`` is
-    CUDA and no GPU is available."""
+    results.  Raises ``ValueError`` for an unknown pattern, and
+    ``RuntimeError`` when ``device`` is CUDA and no GPU is available."""
     device = resolve_device(device)
     specs = list(specs)
     results: list = [None] * len(specs)

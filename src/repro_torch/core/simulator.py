@@ -28,6 +28,7 @@ class SimParams:
     ack_batch: int = 8              # ack-multiple every N deliveries
     n_work_queues: int = 2          # paper: two shared work queues
     reply_factor: float = 1.0       # reply size = factor * request size
+    publish_retry_s: float = 10e-3  # backoff after reject-publish
     jitter: float = 0.03            # +/- service-time jitter (CDF spread)
     seed: int = 0
     #: the cohort engine's safety caps: it stops serving past this many
@@ -36,8 +37,8 @@ class SimParams:
     max_sim_time: float = 36_000.0
     consumer_proc_s: Optional[float] = None   # override per-workload default
     #: per-data-queue byte cap (None = the broker's RAM-budget default).
-    #: Small caps make flow-control events reachable, which neither the
-    #: wave program nor the cohort engine of this package takes yet.
+    #: Small caps push the run into the reject-publish overflow regime,
+    #: which the cohort engine takes (the wave program's gate refuses it).
     queue_max_bytes: Optional[int] = None
     #: per-producer messages per publish round; must be a sub-multiple of
     #: the confirm window.  None auto-tunes (8, shrunk to 2 when a shared

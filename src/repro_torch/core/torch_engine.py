@@ -8,16 +8,17 @@ graph together; one pop of the host's event heap serves one hop of one
 cohort batch, and every FIFO resource resolves its busy intervals with
 the prefix-scan closed form ``e = H + cummax(a - (H - h))``,
 ``H = cumsum(h)``.  It runs every pattern (work sharing, feedback,
-broadcast, broadcast+gather) on cells that reach no broker flow-control
-event; ``run_many`` sends it each cell the wave program's regime gate
-refuses.
+broadcast, broadcast+gather), with the broker's credit flow and
+reject-publish overflow; ``run_many`` sends it each cell the wave
+program's regime gate refuses.
 
 **Layout.**  A cohort's clocks are :class:`Times`: every seed-lane on
 the device as a ``(lanes, n)`` float64 tensor, lanes first so each
 recurrence scans along the last dim, and lane 0 mirrored on the host
 bit for bit.  Lane 0 is the pilot: as in the reference, its clock
 decides every order and branch (service order, the heap key, the event
-horizon, the pump's window choice, the ack batching), so those
+horizon, the pump's window choice, the ack batching, which members
+retry a rejected publish, when withheld confirms resume), so those
 decisions read the host mirror.  The host repeats, in the same float64
 arithmetic, every step the device takes elementwise (a latency, a
 window gate, a lone member's FIFO step: one max and one add), and reads
@@ -27,15 +28,22 @@ the reference's per-lane NumPy generators in the reference's event
 order, drawn on the host and moved to the device.  ``host_reads``
 counts the device-to-host reads.
 
-**Depart store.**  A queue whose publishes could push its backlog past
+**Flow control.**  A queue whose publishes could push its backlog past
 its credit threshold or byte cap keeps its released depart times in
 the reference's masked store (``jax_engine.py``): an ``(lanes,
 entries)`` time tensor and a consumed mask, popped by masked
-reductions for all lanes at once.  Admission takes the fast path of
-the reference's ``_enqueue_batch``; where that bound fails, the
-arrival-order walk is checked in one vectorized pass, and a lane that
-would block or reject raises: credit flow and reject-publish overflow
-are not ported yet.
+reductions for all lanes at once, with lane 0's store mirrored on the
+host as the reference's heap.  Each lane admits a publish cohort on its
+own clocks and its own backlog, as the reference's ``_enqueue_batch``
+does: the fast path's zero-drain bound is checked on the device for
+every lane, and a lane where it fails walks its members in arrival
+order on the host, over one counted read of its clocks and sorted
+departs (:class:`_Cursor`); the pops the walk makes go back to the
+device store before it is next changed.  Rejected publishes retry after
+``publish_retry_s`` (a retry cohort of what lane 0 rejected; the other
+lanes resolve their own retry cadence against their own departs), and
+confirms past a credit threshold are withheld until the queue drains to
+half of it.
 """
 
 from __future__ import annotations
@@ -56,11 +64,6 @@ from repro_torch.core.simulator import ExperimentSpec, RunResult
 from repro_torch.device import resolve_device
 
 F64 = torch.float64
-
-#: why a cell with reachable flow-control events is refused
-FLOW_EVENTS = ("credit-flow confirm withholding and reject-publish "
-               "overflow are not ported yet (ROADMAP §1, item 1, slice "
-               "(c): lane-resolved credit flow and overflow)")
 
 
 def _fifo_scan(a: torch.Tensor, h: torch.Tensor,
@@ -104,6 +107,40 @@ class Times:
     @property
     def n(self) -> int:
         return self.h.size
+
+
+class _Cursor:
+    """One lane's depart cursor of a tracked queue, on the host: the
+    lane's recorded, not yet popped depart times as a min-heap (the
+    reference's per-lane heap), the releases popped so far, the last
+    popped time, and how many of those pops the device store has taken
+    (``synced``)."""
+
+    __slots__ = ("heap", "departed", "last", "synced")
+
+    def __init__(self, heap: list, departed: int, last: float) -> None:
+        self.heap, self.departed, self.last = heap, departed, last
+        self.synced = departed
+
+    def pop(self, t: float) -> None:
+        """Pop every release that left by ``t``."""
+        h = self.heap
+        while h and h[0] <= t:
+            self.last = heapq.heappop(h)
+            self.departed += 1
+
+    def pop_to(self, target: int) -> None:
+        """Pop, earliest first, until ``target`` releases have been
+        popped (best effort: it stops when no recorded drain remains)."""
+        h = self.heap
+        while self.departed < target and h:
+            self.last = heapq.heappop(h)
+            self.departed += 1
+
+    def next_drain(self) -> Optional[float]:
+        """The earliest recorded, unpopped depart (None: no known
+        future drain)."""
+        return self.heap[0] if self.heap else None
 
 
 class _VecResource:
@@ -207,14 +244,15 @@ class TorchStreamSim(Cell):
     ``run``/``run_stacked`` contract, plus the device to run on.
 
     ``stack_seeds[0]`` is the pilot lane; its results are a solo run's
-    bit for bit.  Raises ``ValueError`` on a cell where broker
-    flow-control events are reachable (:meth:`flow_events_possible`)."""
+    bit for bit.  ``rejected`` and ``blocked`` count each lane's
+    rejected publishes and withheld confirms."""
 
     #: bound on the memoized (flow, combos) -> resolved-paths cache
     COMBO_CACHE_MAX = 8192
-    #: finished runs of this engine in this process and their
-    #: device-to-host reads (the chip smoke resets and reads them)
-    stats = {"runs": 0, "host_reads": 0}
+    #: finished runs of this engine in this process, their device-to-host
+    #: reads, and the confirms they left withheld (none, once every
+    #: resolver fired; the chip smoke resets and reads them)
+    stats = {"runs": 0, "host_reads": 0, "withheld": 0}
     #: jitter draws per lane fetched from the generators at a time
     JIT_BLOCK = 1 << 15
 
@@ -224,11 +262,10 @@ class TorchStreamSim(Cell):
                  stack_seeds: Optional[list[int]] = None,
                  device: "torch.device | str" = "cuda") -> None:
         super().__init__(spec, inventory, arch, stack_seeds)
-        if self.flow_events_possible():
-            raise ValueError(f"{spec.pattern}/{spec.arch}: flow-control "
-                             f"events are reachable; {FLOW_EVENTS}")
         self.device = resolve_device(device)
         L = self._lanes
+        self.rejected = np.zeros(L, dtype=np.int64)
+        self.blocked = np.zeros(L, dtype=np.int64)
         self.resources = {k: _VecResource(s, L, self.device)
                           for k, s in self.arch.resources.items()}
         #: device-to-host reads of this run
@@ -374,27 +411,36 @@ class TorchStreamSim(Cell):
                      volume: int = 0) -> dict:
         """Get/create one broker queue's batched state.
 
-        A queue tracks its backlog (``n_enq`` enqueues, the same in every
-        lane here, less each lane's ``departed`` releases) only when its
-        ``volume``, the messages it will ever take, exceeds its credit
-        threshold or byte cap: a backlog below both never leaves the
-        reference's admission fast path, so nothing reads its departs.
-        A tracked queue keeps the masked depart store."""
+        A queue tracks its backlog (each lane's ``n_enq`` enqueues less
+        its popped releases) only when its ``volume``, the messages it
+        will ever take, exceeds its credit threshold or byte cap: a
+        backlog below both never leaves the reference's admission fast
+        path, so nothing reads its departs.  A tracked queue keeps the
+        masked depart store on the device, lane 0's cursor on the host
+        (``c0``), the other lanes' cursors while a host walk holds them
+        (``sess``), and per lane the backlog's high-water mark ``hwm``
+        and the optimistic admissions ``forced``; ``deferred`` holds the
+        resolvers of withheld confirms."""
         q = self._queues.get(qkey)
         if q is None:
+            L = self._lanes
             limits = [x for x in (credit, cap_msgs) if x is not None]
             q = {"consumers": [int(c) for c in consumers], "pending": [],
                  "size": size, "credit": credit, "cap": cap_msgs,
                  "track": bool(limits) and volume > min(limits),
-                 "n_enq": 0, "released": 0}
+                 "n_enq": np.zeros(L, dtype=np.int64), "released": 0,
+                 "hwm": np.zeros(L, dtype=np.int64),
+                 "forced": np.zeros(L, dtype=np.int64), "deferred": []}
             if q["track"]:
-                L, dev = self._lanes, self.device
+                dev = self.device
                 q["limit"] = min(limits)
                 q["dep"] = torch.full((L, 64), np.inf, dtype=F64, device=dev)
                 q["used"] = torch.ones((L, 64), dtype=torch.bool, device=dev)
                 q["dep_n"] = 0
                 q["departed"] = torch.zeros(L, dtype=torch.int64, device=dev)
                 q["last_pop_t"] = torch.zeros(L, dtype=F64, device=dev)
+                q["c0"] = _Cursor([], 0, 0.0)
+                q["sess"] = None
             self._queues[qkey] = q
             for c in q["consumers"]:
                 self._chan_queue[c] = qkey
@@ -416,13 +462,6 @@ class TorchStreamSim(Cell):
             q["last_pop_t"])
         used |= ready
 
-    def _next_drain(self, q: dict) -> torch.Tensor:
-        """Each lane's earliest recorded, unconsumed depart time (+inf
-        where the lane has no known future drain)."""
-        n = q["dep_n"]
-        return torch.where(q["used"][:, :n], torch.inf,
-                           q["dep"][:, :n]).amin(1)
-
     def _pop_to_target(self, q: dict, target: torch.Tensor) -> None:
         """Advance each lane's depart cursor until ``target[lane]``
         releases have been popped, earliest first (best effort: it stops
@@ -442,11 +481,68 @@ class TorchStreamSim(Cell):
             npop > 0, torch.where(sel, srt, -torch.inf).amax(1),
             q["last_pop_t"])
 
+    def _load(self, qs: list, extra: tuple = ()) -> list:
+        """Host cursors of every non-pilot lane of the tracked queues
+        ``qs``, from their stores sorted on the device, read together
+        with the tensors ``extra`` in one counted read; returns
+        ``extra`` on the host."""
+        L1 = self._lanes - 1
+        parts = []
+        for q in qs:
+            n = q["dep_n"]
+            srt = torch.sort(torch.where(q["used"][1:, :n], torch.inf,
+                                         q["dep"][1:, :n]), dim=1).values
+            parts += [srt.reshape(-1), q["departed"][1:].to(F64),
+                      q["last_pop_t"][1:]]
+        flat = self._read(torch.cat(parts + [x.reshape(-1) for x in extra]))
+        off = 0
+        for q in qs:
+            n = q["dep_n"]
+            srt = flat[off:off + L1 * n].reshape(L1, n)
+            dep = flat[off + L1 * n:off + L1 * (n + 1)].astype(np.int64)
+            last = flat[off + L1 * (n + 1):off + L1 * (n + 2)]
+            off += L1 * (n + 2)
+            # a sorted list is a min-heap
+            q["sess"] = {lane: _Cursor(srt[lane - 1, :n - dep[lane - 1]]
+                                       .tolist(), int(dep[lane - 1]),
+                                       float(last[lane - 1]))
+                         for lane in range(1, L1 + 1)}
+        out = []
+        for x in extra:
+            out.append(flat[off:off + x.numel()].reshape(tuple(x.shape)))
+            off += x.numel()
+        return out
+
+    def _cursor(self, q: dict, lane: int) -> _Cursor:
+        """Lane ``lane``'s host cursor of tracked queue ``q`` (lane 0's
+        is always held; the others are read on first use)."""
+        if lane == 0:
+            return q["c0"]
+        if q["sess"] is None:
+            self._load([q])
+        return q["sess"][lane]
+
+    def _flush(self, q: dict) -> None:
+        """Before the device store of ``q`` changes: write the host
+        cursors' pops back to it (the same count of earliest departs in
+        each lane) and drop the non-pilot cursors, which the change
+        outdates."""
+        curs = [(0, q["c0"])] + list((q["sess"] or {}).items())
+        dirty = [(lane, c) for lane, c in curs if c.departed > c.synced]
+        if dirty:
+            target = np.zeros(self._lanes, dtype=np.int64)
+            for lane, c in dirty:
+                target[lane] = c.synced = c.departed
+            self._pop_to_target(q, self._up(target))
+        q["sess"] = None
+
     def _record_departs(self, q: dict, depart: Times) -> None:
         """Register released deliveries' depart times in a tracked
-        queue's store."""
+        queue's store, and resolve any withheld confirms the new drains
+        now admit."""
         if not q["track"]:
             return
+        self._flush(q)
         n0, m = q["dep_n"], depart.n
         if n0 + m > q["dep"].shape[1]:
             pad = max(n0 + m, 2 * q["dep"].shape[1]) - q["dep"].shape[1]
@@ -457,56 +553,213 @@ class TorchStreamSim(Cell):
         q["dep"][:, n0:n0 + m] = depart.d
         q["used"][:, n0:n0 + m] = False
         q["dep_n"] = n0 + m
+        h = q["c0"].heap
+        for d in depart.h.tolist():
+            heapq.heappush(h, d)
         q["released"] += m
+        if q["deferred"]:
+            self._try_resume(q)
 
-    def _enqueue_batch(self, qs: list, t: Times) -> None:
+    def _lane_resume_time(self, q: dict, lane: int) -> float:
+        """One lane's ``flow_resume`` clock: pop that lane's departs
+        until it has drained to half the credit threshold (best effort:
+        with no further known drains the last release stands) and return
+        the crossing depart time + control latency."""
+        c = self._cursor(q, lane)
+        c.pop_to(int(q["n_enq"][lane]) - q["credit"] // 2)
+        return c.last + self.arch.control_latency_s()
+
+    def _try_resume(self, q: dict, force: bool = False) -> bool:
+        """Release the queue's withheld confirms once lane 0 has drained
+        to half the credit threshold (the heap broker's ``flow_resume``),
+        at the depart time that crossed the mark + control latency; each
+        resolver computes the other blocked lanes' resume clocks from
+        their own departs (:meth:`_lane_resume_time`) when it fires."""
+        if not q["deferred"]:
+            return False
+        target = int(q["n_enq"][0]) - q["credit"] // 2
+        if q["released"] < target and not force:
+            return False
+        c0 = q["c0"]
+        c0.pop_to(target)
+        t_resume = c0.last + self.arch.control_latency_s()
+        resolvers, q["deferred"] = q["deferred"], []
+        for fn in resolvers:
+            fn(t_resume)
+        return True
+
+    def _force_resume(self) -> bool:
+        """Last-resort deadlock breaker for the drained-out tail: resolve
+        any still-withheld confirms at the release clock."""
+        any_resolved = False
+        for q in self._queues.values():
+            if q["deferred"] and self._try_resume(q, force=True):
+                any_resolved = True
+        return any_resolved
+
+    def _lane_admit(self, tracked: list, lane: int, t_rej: float
+                    ) -> tuple[float, int, Optional[dict]]:
+        """Resolve one non-pilot lane's reject-retry loop locally: the
+        lane's producer re-publishes every ``publish_retry_s`` until the
+        lane's own backlog admits the message (against the drains the
+        lane has already computed); the re-publish transits are not
+        re-served (the member's schedule is the pilot's).  Called after
+        the lane's attempt at ``t_rej`` was rejected and counted.
+        Returns ``(t_admit, extra_rejects, blocked_on)``; with no further
+        known drain the next attempt is admitted optimistically, counted
+        in ``forced``."""
+        retry = self.p.publish_retry_s
+        t = t_rej + retry
+        extra = 0
+        while True:
+            full_q = None
+            for q in tracked:
+                c = self._cursor(q, lane)
+                c.pop(t)
+                if (q["cap"] is not None
+                        and q["n_enq"][lane] - c.departed >= q["cap"]):
+                    full_q = q
+                    break
+            if full_q is None:
+                break
+            nd = self._cursor(full_q, lane).next_drain()
+            if nd is None:
+                extra += 1
+                t += retry
+                for q in tracked:
+                    q["forced"][lane] += 1
+                break
+            # every retry until the next known drain fails too: jump the
+            # retry cadence straight past it
+            k = max(1, int(np.ceil((nd - t) / retry)))
+            extra += k
+            t += k * retry
+        for q in tracked:
+            q["n_enq"][lane] += 1
+            q["hwm"][lane] = max(q["hwm"][lane], q["n_enq"][lane]
+                                 - self._cursor(q, lane).departed)
+        for q in tracked:
+            if (q["credit"] is not None and q["n_enq"][lane]
+                    - self._cursor(q, lane).departed > q["credit"]):
+                return t, extra, q
+        return t, extra, None
+
+    def _enqueue_batch(self, qs: list, t: Times,
+                       skip: Optional[np.ndarray] = None
+                       ) -> tuple[np.ndarray, Optional[np.ndarray],
+                                  Optional[np.ndarray]]:
         """Admit a publish cohort onto one queue (or atomically onto all
-        fanout targets), in every lane.  A tracked target takes the
-        reference's fast path when even a zero-drain bound on its
-        backlog stays within its limits at the lane's earliest arrival;
-        where that bound fails in a lane, the lane's arrival-order walk
-        is checked in one pass, and a member the walk would reject at
-        the byte cap or block at the credit threshold raises."""
+        fanout targets), independently per lane.  ``skip[k, l]`` marks
+        members an earlier attempt already admitted in lane ``l``.
+        Returns ``(accepted, blocked_on, t_host)``: ``accepted[k, l]``,
+        admitted in lane ``l`` by this attempt; ``blocked_on``, None when
+        no lane crossed a credit threshold, else an ``(n, lanes)`` object
+        array naming the queue whose threshold the member crossed there;
+        ``t_host``, the clocks the host read, ``(n, lanes)`` with NaN in
+        the lanes it did not (None when no queue is tracked).
+
+        Each lane runs the reference's solo admission on its own clocks
+        and depart cursor: the fast path when even a zero-drain bound on
+        every target's backlog stays within its limits at the lane's
+        earliest arrival (checked for every lane on the device, a
+        target popped only while the earlier ones passed, as the
+        reference's loop breaks), else the arrival-order walk
+        (:meth:`_admit_walk`), on the host over one counted read of the
+        failing lanes' clocks and sorted departs."""
+        L, n = self._lanes, t.n
+        att = (np.ones((n, L), dtype=bool) if skip is None else ~skip)
         tracked = [q for q in qs if q["track"]]
         if not tracked:
-            return
-        n = t.n
-        t_min = t.d.amin(1)
-        fail = None
+            return att, None, None
+        n_att = att.sum(0)
+        live = n_att > 0
         for q in tracked:
-            self._pop_lane(q, t_min)
-            over = q["n_enq"] + n - q["departed"] > q["limit"]
-            fail = over if fail is None else fail | over
-        self.host_reads += 1
-        if bool(fail.any()):
-            tls = torch.sort(t.d, dim=1).values
-            k = torch.arange(n, device=t.d.device)
-            bad = torch.zeros_like(fail)
-            for q in tracked:
-                nd = q["dep_n"]
-                srt = torch.sort(torch.where(q["used"][:, :nd], torch.inf,
-                                             q["dep"][:, :nd]),
-                                 dim=1).values
-                dc = q["departed"][:, None] + torch.searchsorted(
-                    srt, tls.contiguous(), right=True)
-                before = q["n_enq"] + k[None, :] - dc
-                if q["cap"] is not None:
-                    bad |= (before >= q["cap"]).any(1)
-                if q["credit"] is not None:
-                    bad |= (before + 1 > q["credit"]).any(1)
-            self.host_reads += 1
-            if bool((bad & fail).any()):
-                raise RuntimeError(
-                    f"{self.spec.pattern}/{self.spec.arch}: a publish "
-                    f"reached a queue's credit threshold or byte cap; "
-                    f"{FLOW_EVENTS}")
-            # the walk leaves each failing lane's cursor at its latest
-            # arrival
-            t_max = torch.where(fail, t.d.amax(1), t_min)
-            for q in tracked:
-                self._pop_lane(q, t_max)
-        for q in tracked:
-            q["n_enq"] += n
+            self._flush(q)
+        if skip is None:
+            t_min = t.d.amin(1)
+        else:
+            t_min = torch.where(self._up(att.T), t.d, torch.inf).amin(1)
+        alive = None if live.all() else self._up(live)
+        t0 = float(t.h[att[:, 0]].min()) if live[0] else None
+        for i, q in enumerate(tracked):
+            self._pop_lane(q, t_min if alive is None
+                           else torch.where(alive, t_min, -torch.inf))
+            c0 = q["c0"]
+            if t0 is not None:
+                c0.pop(t0)
+                c0.synced = c0.departed
+                if q["n_enq"][0] + n_att[0] - c0.departed > q["limit"]:
+                    t0 = None
+            if i + 1 < len(tracked):
+                ok = (self._up(q["n_enq"] + n_att) - q["departed"]
+                      <= q["limit"])
+                alive = ok if alive is None else alive & ok
+        if L > 1:
+            dep = self._read(torch.stack([q["departed"] for q in tracked]))
+        else:
+            dep = np.array([[q["c0"].departed] for q in tracked])
+        nq = np.stack([q["n_enq"] for q in tracked])
+        lim = np.array([q["limit"] for q in tracked])[:, None]
+        fast = live & ~(nq + n_att - dep > lim).any(0)
+        for q, d in zip(tracked, dep):
+            q["n_enq"][fast] += n_att[fast]
+            q["hwm"][fast] = np.maximum(q["hwm"][fast],
+                                        q["n_enq"][fast] - d[fast])
+        accept = att & fast
+        blocked_on = None
+        th = np.full((n, L), np.nan)
+        th[:, 0] = t.h
+        slow = np.nonzero(live & ~fast)[0]
+        others = slow[slow > 0]
+        if others.size:
+            (tl,) = self._load(tracked, (t.d.index_select(
+                0, self._up(others)),))
+            th[:, others] = tl.T
+        for lane in slow:
+            ks = np.nonzero(att[:, lane])[0]
+            ks = ks[np.argsort(th[ks, lane], kind="stable")]
+            admitted, blocked = self._admit_walk(tracked, lane, ks, th)
+            accept[admitted, lane] = True
+            for k, q in blocked:
+                if blocked_on is None:
+                    blocked_on = np.full((n, L), None, dtype=object)
+                blocked_on[k, lane] = q
+        return accept, blocked_on, th
+
+    def _admit_walk(self, tracked: list, lane: int, ks: np.ndarray,
+                    th: np.ndarray) -> tuple[np.ndarray, list]:
+        """One lane's arrival-order admission walk on the host (the heap
+        engine's ``offer()``/``flow_blocked`` sequence): members ``ks``,
+        sorted by this lane's clocks ``th[:, lane]``, are admitted
+        unless a target's backlog sits at its byte cap at the member's
+        arrival; each admission bumps every target's enqueue count and
+        high-water mark, and the first credit threshold it crosses is
+        recorded.  Returns ``(admitted_members, [(member, queue),
+        ...])``."""
+        curs = [self._cursor(q, lane) for q in tracked]
+        admitted, blocked = [], []
+        for k in ks.tolist():
+            t = th[k, lane]
+            full = False
+            for q, c in zip(tracked, curs):
+                c.pop(t)
+                if (q["cap"] is not None
+                        and q["n_enq"][lane] - c.departed >= q["cap"]):
+                    full = True
+                    break
+            if full:
+                continue
+            admitted.append(k)
+            for q, c in zip(tracked, curs):
+                q["n_enq"][lane] += 1
+                q["hwm"][lane] = max(q["hwm"][lane],
+                                     q["n_enq"][lane] - c.departed)
+            for q, c in zip(tracked, curs):
+                if (q["credit"] is not None
+                        and q["n_enq"][lane] - c.departed > q["credit"]):
+                    blocked.append((k, q))
+                    break
+        return np.asarray(admitted, dtype=np.int64), blocked
 
     # -- batch event loop ------------------------------------------------------
     def _push_transit(self, t: Times, size: int, flow: str,
@@ -670,8 +923,9 @@ class TorchStreamSim(Cell):
     def _tail_step(self) -> bool:
         """One end-of-drain recovery step, called with the heap empty:
         force-flush unflushed batch acks that hold back window-waiting
-        deliveries (the heap engine's expected-consumed flush).  True
-        when new events appeared."""
+        deliveries (the heap engine's expected-consumed flush), then
+        force-resume withheld confirms.  True when new events
+        appeared."""
         ctrl = self.arch.control_latency_s()
         flushed = []
         for c, ch in self._channels.items():
@@ -689,11 +943,12 @@ class TorchStreamSim(Cell):
             self._pump_queues(flushed)
             if self._heap:
                 return True
-        return False
+        return self._force_resume() and bool(self._heap)
 
     def _drain_all(self) -> None:
         """Drain the event heap, then force-flush held-back batch acks
-        and keep draining until nothing is left."""
+        (and force-resume withheld confirms) and keep draining until
+        nothing is left."""
         while True:
             self._drain()
             if not self._tail_step():
@@ -955,30 +1210,189 @@ class TorchStreamSim(Cell):
                             ) -> None:
         """Push a publish cohort through ``flow`` and admit it onto its
         target queues, for all four publish legs (work publish, feedback
-        reply, broadcast fanout, gather reply).  ``groups_of(members)``
+        reply, broadcast fanout, gather reply), with the broker's full
+        admission treatment:
+
+        * **reject-publish overflow**: members rejected at a target's
+          byte cap re-enter the publish path after ``publish_retry_s``,
+          as a retry cohort;
+        * **credit flow**: an admitted member that pushes a tracked
+          queue past its credit threshold has its publisher confirm
+          withheld on that queue's ``deferred`` list until the pump
+          drains it to half the threshold (only where ``set_confirms``
+          is given: reply legs never gate a producer's window).
+
+        ``members`` is an opaque index array; ``groups_of(members)``
         yields ``(group_key, queue_states, positions)``, one admission
         group per target queue (several states: an atomic fanout);
         ``deliver(group_key, members, t_enq)`` hands admitted members to
         the pump; ``set_confirms(members, t_conf)`` /
-        ``mark_confirmed(members)`` record publisher confirms.  The
-        reject-retry and deferred-confirm branches of the reference are
-        not ported: the engine refuses cells that can reach them, and
-        :meth:`_enqueue_batch` raises if one does."""
-        ctrl = self.arch.control_latency_s()
+        ``mark_confirmed(members)`` record publisher confirms.
 
-        def land(mb: np.ndarray, t_enq: Times) -> None:
-            mem = members[mb]
+        Admission runs per lane (:meth:`_enqueue_batch`), so lanes
+        diverge here; scheduling stays the pilot's.  A member joins a
+        retry cohort iff lane 0 rejected it (lanes that had admitted it
+        keep their admission times); a lane that rejects a member lane 0
+        admitted resolves its own retry cadence (:meth:`_lane_admit`).
+        Confirm times, credit blocks and reject counts are per lane."""
+        ctrl = self.arch.control_latency_s()
+        retry = self.p.publish_retry_s
+        L = self._lanes
+        n_state = int(members.max()) + 1 if members.size else 0
+        # per-member, per-lane admission state, by member value: the
+        # admitted flag; the admission time (on the device, lane 0 also
+        # on the host; made at the first attempt some lane did not
+        # admit whole); and the queue whose credit threshold the
+        # admission crossed
+        st_in = np.zeros((n_state, L), dtype=bool)
+        st_t: Optional[Times] = None
+        st_blk: dict[int, list] = {}
+
+        def attempt(mem: np.ndarray, t_arr: Times) -> None:
+            self._push_transit(t_arr, size, flow, combos_of(mem),
+                               on_part=lambda mb, t: land(mem[mb], t))
+
+        def land(mem: np.ndarray, t_enq: Times) -> None:
+            nonlocal st_t
             for gkey, queues, pos in groups_of(mem):
                 sub = mem[pos]
                 tp = self._take(t_enq, pos)
-                self._enqueue_batch(queues, tp)
-                if set_confirms is not None:
-                    set_confirms(sub, Times(tp.d + ctrl, tp.h + ctrl))
-                deliver(gkey, sub, tp)
-                if mark_confirmed is not None:
-                    mark_confirmed(sub)
+                already = st_in[sub]
+                if already.any():
+                    t_use = Times(torch.where(self._up(already.T),
+                                              self._cols(st_t.d, sub), tp.d),
+                                  np.where(already[:, 0], st_t.h[sub], tp.h))
+                    acc, blocked_on, th = self._enqueue_batch(
+                        queues, t_use, skip=already)
+                else:
+                    t_use = tp
+                    acc, blocked_on, th = self._enqueue_batch(queues, tp)
+                in_now = already | acc
+                st_in[sub] = in_now
+                self.rejected += (~in_now).sum(0)
+                if blocked_on is not None:
+                    blk_mask = np.not_equal(blocked_on, None)
+                    for r, lane in zip(*np.nonzero(blk_mask)):
+                        st_blk.setdefault(int(sub[r]), [None] * L)[lane] = \
+                            blocked_on[r, lane]
+                    self.blocked += blk_mask.sum(0)
+                if blocked_on is None and acc.all():
+                    # hot path (no reject, no credit event, in any
+                    # lane): bulk confirms, one prefix advance
+                    if set_confirms is not None:
+                        set_confirms(sub, Times(tp.d + ctrl, tp.h + ctrl))
+                    deliver(gkey, sub, tp)
+                    if mark_confirmed is not None:
+                        mark_confirmed(sub)
+                    continue
+                if st_t is None:
+                    st_t = Times(torch.full((L, n_state), np.nan, dtype=F64,
+                                            device=self.device),
+                                 np.full(n_state, np.nan))
+                t_new = Times(torch.where(self._up(acc.T), t_use.d,
+                                          self._cols(st_t.d, sub)),
+                              np.where(acc[:, 0], t_use.h, st_t.h[sub]))
+                rej = np.nonzero(~in_now[:, 0])[0]
+                if rej.size:
+                    tr = self._take(t_use, rej)
+                    attempt(sub[rej], Times(tr.d + retry, tr.h + retry))
+                ok = np.nonzero(in_now[:, 0])[0]
+                if ok.size and L > 1:
+                    # lane 0 admitted: the member's schedule is fixed;
+                    # lanes that still rejected it resolve their retry
+                    # cadence against their own departs
+                    tracked = [q for q in queues if q["track"]]
+                    fix_k, fix_l, fix_t = [], [], []
+                    for k in ok:
+                        for lane in np.nonzero(~in_now[k, 1:])[0] + 1:
+                            t_adm, extra, bq = self._lane_admit(
+                                tracked, lane, float(th[k, lane]))
+                            self.rejected[lane] += extra
+                            fix_k.append(k)
+                            fix_l.append(lane)
+                            fix_t.append(t_adm)
+                            st_in[sub[k], lane] = True
+                            if bq is not None:
+                                st_blk.setdefault(int(sub[k]),
+                                                  [None] * L)[lane] = bq
+                                self.blocked[lane] += 1
+                    if fix_k:
+                        t_new.d.index_put_(
+                            (self._up(np.array(fix_l)),
+                             self._up(np.array(fix_k))),
+                            self._up(np.array(fix_t)))
+                self._put(st_t.d, sub, t_new.d)
+                st_t.h[sub] = t_new.h
+                if ok.size == 0:
+                    continue
+                t_fin = self._take(t_new, ok)
+                if set_confirms is None:
+                    deliver(gkey, sub[ok], t_fin)
+                    continue
+                self._confirm(sub[ok], t_fin, st_blk, set_confirms,
+                              mark_confirmed,
+                              lambda: deliver(gkey, sub[ok], t_fin))
 
-        self._push_transit(t0, size, flow, combos_of(members), on_part=land)
+        attempt(members, t0)
+
+    def _confirm(self, mem: np.ndarray, t_fin: Times, st_blk: dict,
+                 set_confirms: Callable, mark_confirmed: Callable,
+                 deliver: Callable) -> None:
+        """Confirm members that lane 0 admitted with their admission
+        times ``t_fin``: at once, each blocked non-pilot lane no earlier
+        than its own resume clock, where lane 0 did not cross a credit
+        threshold; else withheld on lane 0's blocking queue until
+        :meth:`_try_resume` fires its resolver.  ``deliver`` hands the
+        members to the pump in between, as the reference does."""
+        L = self._lanes
+        ctrl = self.arch.control_latency_s()
+        tc = Times(t_fin.d + ctrl, t_fin.h + ctrl)
+        now, adj, deferred_on = [], {}, None
+        for k, mk in enumerate(mem.tolist()):
+            blk = st_blk.get(mk)
+            if blk is None or blk[0] is None:
+                for lane in range(1, L):
+                    if blk is not None and blk[lane] is not None:
+                        adj[(lane, len(now))] = self._lane_resume_time(
+                            blk[lane], lane)
+                now.append(k)
+                continue
+            # credit flow: withhold this confirm until the pump drains
+            # lane 0's queue to flow_resume
+            deferred_on = blk[0]
+            blk[0]["deferred"].append(self._resolver(
+                mk, tc.d[:, k:k + 1], blk, set_confirms, mark_confirmed))
+        if now:
+            ck = np.array(now)
+            d = tc.d.index_select(1, self._up(ck))
+            if adj:
+                a = np.full((L, ck.size), -np.inf)
+                for (lane, i), v in adj.items():
+                    a[lane, i] = v
+                d = torch.maximum(d, self._up(a))
+            set_confirms(mem[ck], Times(d, tc.h[ck]))
+        deliver()
+        if now:
+            mark_confirmed(mem[np.array(now)])
+        if deferred_on is not None:
+            self._try_resume(deferred_on)
+
+    def _resolver(self, mk: int, tc: torch.Tensor, blk: list,
+                  set_confirms: Callable, mark_confirmed: Callable
+                  ) -> Callable[[float], None]:
+        """The resolver of member ``mk``'s withheld confirm: lane 0 at
+        the resume clock it is given, each other blocked lane no earlier
+        than its own resume clock then, the rest at ``tc``."""
+        def fire(t_res: float) -> None:
+            a = np.full((self._lanes, 1), -np.inf)
+            for lane in range(1, self._lanes):
+                if blk[lane] is not None:
+                    a[lane, 0] = self._lane_resume_time(blk[lane], lane)
+            d = torch.maximum(tc, self._up(a))
+            d[0, 0] = t_res
+            set_confirms(np.array([mk]), Times(d, np.array([t_res])))
+            mark_confirmed(np.array([mk]))
+        return fire
 
     # -- main ------------------------------------------------------------------
     def _setup(self) -> None:
@@ -1007,6 +1421,8 @@ class TorchStreamSim(Cell):
         out = self._finalize_stacked()
         TorchStreamSim.stats["runs"] += 1
         TorchStreamSim.stats["host_reads"] += self.host_reads
+        TorchStreamSim.stats["withheld"] += sum(
+            len(q["deferred"]) for q in self._queues.values())
         return out
 
     def _store(self, *shape: int, fill: float = 0.0) -> torch.Tensor:
@@ -1067,6 +1483,12 @@ class TorchStreamSim(Cell):
                                   cap_msgs=rcap, volume=M)
 
         R = max(1, min(W, self._round))
+        # flow-control events reachable (a byte cap below the per-queue
+        # volume, or a publish surplus that can pile backlog past the
+        # credit threshold): per-message rounds reproduce the heap
+        # engine's burst-and-retry dynamics at the blocking boundary
+        if self.p.vec_round is None and self.flow_events_possible():
+            R = 1
         n_rounds = -(-M // R)
         # per-producer resolved-confirm prefixes: round r may launch once
         # every confirm its send gates read (indices < hi - W) is resolved
@@ -1249,6 +1671,10 @@ class TorchStreamSim(Cell):
                               volume=M * nC)
 
         R = max(1, min(W, self._round))
+        # flow-control events reachable on the fanout targets: see
+        # _setup_work
+        if self.p.vec_round is None and self.flow_events_possible():
+            R = 1
         n_rounds = -(-M // R)
         conf_ok = np.zeros(M, dtype=bool)
         state = {"next_launch": 0, "prefix": 0}
@@ -1366,7 +1792,12 @@ class TorchStreamSim(Cell):
     # -- shared result assembly ------------------------------------------------
     def _finalize_stacked(self) -> list[RunResult]:
         """Per-lane results: lane ``s`` is the cell run with
-        ``stack_seeds[s]``, through the cell's ``_result`` contract."""
+        ``stack_seeds[s]``, through the cell's ``_result`` contract, with
+        the lane's own flow-control counters.  The host cursors' last
+        pops go back to the device stores first."""
+        for q in self._queues.values():
+            if q["track"]:
+                self._flush(q)
         consume_t, rtts, pub_start = (
             None if x is None else self._read(x) for x in self._fin)
         out = []
@@ -1375,5 +1806,6 @@ class TorchStreamSim(Cell):
                 self.spec, params=dataclasses.replace(self.p, seed=seed))
             out.append(self._result(
                 spec_s, consume_t[s], None if rtts is None else rtts[s],
-                pub_start[s]))
+                pub_start[s], rejected=int(self.rejected[s]),
+                blocked=int(self.blocked[s])))
         return out

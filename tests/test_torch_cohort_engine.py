@@ -3,7 +3,8 @@ against the reference's NumPy ``VectorizedStreamSim``, on the CPU.
 
 * **seams** — the FIFO scan, the batched resources (a pipe, and k-server
   pools with more and with fewer servers than customers), the masked
-  depart store and the admission check equal the reference's functions;
+  depart store and the admission walk equal the reference's functions
+  (the flow-control seams in ``test_torch_flow_control.py``);
 * **whole runs** — ``run_many(..., device="cpu")`` on cells the wave gate
   refuses and on the broadcast patterns gives the reference's consume
   times, RTTs and publish starts (rtol 1e-12; bit for bit in practice)
@@ -11,8 +12,8 @@ against the reference's NumPy ``VectorizedStreamSim``, on the CPU.
   is the solo run bit for bit;
 * **routing** — a cell the wave gate accepts still runs the wave program
   (and its pump), a refused cell runs the cohort engine, a cell with
-  reachable flow-control events raises with the reason, and the default
-  ``device="cuda"`` raises without a GPU;
+  reachable flow-control events runs it too and matches the reference,
+  and the default ``device="cuda"`` raises without a GPU;
 * on the card (``gpu`` marker), a Fig 7b cell is held to the reference at
   the cross-device tolerance.
 """
@@ -165,8 +166,9 @@ def _same_cursor(qr, qp):
 
 
 def test_depart_store_matches_reference_heaps():
-    """The masked store pops, peeks and pops to a target as the
-    reference's per-lane heaps do, across interleaved records."""
+    """The masked store pops and pops to a target as the reference's
+    per-lane heaps do, across interleaved records, and the host cursors
+    read from it (lane 0's kept on the host) peek the same next drain."""
     ref, port = _engines()
     qr = ref._queue_state(("t",), [0], 4096, credit=400)
     qp = port._queue_state(("t",), [0], 4096, credit=400, volume=10 ** 6)
@@ -178,11 +180,13 @@ def test_depart_store_matches_reference_heaps():
         for lane in range(3):
             ref._pop_lane(qr, lane, float(thresh[lane]))
         port._pop_lane(qp, torch.tensor(thresh))
+        qp["c0"].pop(float(thresh[0]))
+        qp["c0"].synced = qp["c0"].departed
         _same_cursor(qr, qp)
-        nd = port._next_drain(qp).numpy()
         for lane in range(3):
-            want = ref._next_drain(qr, lane)
-            assert nd[lane] == (np.inf if want is None else want)
+            cur = port._cursor(qp, lane)
+            assert cur.departed == qr["departed"][lane]
+            assert cur.next_drain() == ref._next_drain(qr, lane)
     target = qr["departed"] + np.array([2, 5, 100])
     for lane in range(3):
         ref._pop_to_target(qr, lane, int(target[lane]))
@@ -195,10 +199,10 @@ def test_depart_store_matches_reference_heaps():
 def test_admission_walk_admits_or_raises_as_the_reference(limit):
     """Where the zero-drain bound fails but drains between arrivals keep
     every member within the limit, every lane admits the whole cohort and
-    leaves the reference's cursor; where a member would cross the limit
-    (the reference blocks or rejects it), the port raises."""
-    for arrivals, ok in (([0.5, 1.5, 2.5, 3.5, 4.5], True),
-                         ([0.5, 0.6, 0.7, 0.8, 0.9], False)):
+    leaves the reference's cursor; where members cross the limit, every
+    lane rejects (byte cap) or blocks on (credit threshold) the members
+    the reference's walk does, and leaves its counters and cursor."""
+    for arrivals in ([0.5, 1.5, 2.5, 3.5, 4.5], [0.5, 0.6, 0.7, 0.8, 0.9]):
         ref, port = _engines()
         lim = dict(credit=10) if limit == "credit" else dict(cap_msgs=11)
         qr = ref._queue_state(("t",), [0], 4096, **lim)
@@ -206,19 +210,26 @@ def test_admission_walk_admits_or_raises_as_the_reference(limit):
         departs = np.arange(1.0, 9.0)[:, None] + np.array([0.0, 0.01, 0.02])
         _record(ref, port, qr, qp, departs)
         qr["n_enq"][:] = 8
-        qp["n_enq"] = 8
+        qp["n_enq"][:] = 8
         t = np.array(arrivals)[:, None] + np.array([0.0, 0.001, 0.002])
         acc, blocked = ref._enqueue_batch([qr], t)
         cohort = Times(torch.tensor(t.T.copy()), t[:, 0].copy())
-        if ok:
+        got, got_blk, _ = port._enqueue_batch([qp], cohort)
+        np.testing.assert_array_equal(got, acc)
+        if blocked is None:
+            assert got_blk is None
+        else:
+            np.testing.assert_array_equal(
+                np.not_equal(got_blk, None), np.not_equal(blocked, None))
+            assert all(q is qp for q in got_blk[np.not_equal(got_blk, None)])
+        if arrivals[1] == 1.5:
             assert acc.all() and blocked is None
-            port._enqueue_batch([qp], cohort)
-            assert qp["n_enq"] == 13 and (qr["n_enq"] == 13).all()
-            _same_cursor(qr, qp)
         else:
             assert not acc.all() or blocked is not None
-            with pytest.raises(RuntimeError, match=r"slice \(c\)"):
-                port._enqueue_batch([qp], cohort)
+        port._flush(qp)
+        np.testing.assert_array_equal(qp["n_enq"], qr["n_enq"])
+        np.testing.assert_array_equal(qp["hwm"], qr["hwm"])
+        _same_cursor(qr, qp)
 
 
 # ---------------------------------------------------------------------------
@@ -324,12 +335,24 @@ def test_run_many_routes_wave_cells_to_the_wave_program(monkeypatch):
 
 
 def test_flow_events_cell_raises_with_the_reason():
-    _, port = _pair("work_sharing", "dts", 2, 2, 600,
-                    queue_max_bytes=64 * 1024)
-    with pytest.raises(ValueError, match=r"flow-control events.*slice \(c\)"):
-        TorchStreamSim(port, device="cpu")
-    with pytest.raises(ValueError, match=r"slice \(c\)"):
-        repro_torch.run_many([port], device="cpu")
+    """Cells with reachable flow-control events (a byte cap of 4
+    messages, below each queue's volume, and of 1, where one lane
+    rejects publishes) no longer raise: they run through ``run_many`` on
+    the cohort engine and give the reference's results, counters
+    included."""
+    for cap in (64 * 1024, 16 * 1024):
+        pairs = [_pair("work_sharing", "dts", 2, 2, 600, seed=s,
+                       queue_max_bytes=cap) for s in SEEDS]
+        sim = TorchStreamSim(pairs[0][1], device="cpu")
+        assert sim.flow_events_possible()
+        runs = TorchStreamSim.stats["runs"]
+        got = repro_torch.run_many([p for _, p in pairs], device="cpu")
+        assert TorchStreamSim.stats["runs"] == runs + 1
+        want = ref_vec.VectorizedStreamSim(
+            pairs[0][0], stack_seeds=list(SEEDS)).run_stacked()
+        _assert_results_match(got, want)
+        assert all(r.n_consumed == 600 for r in got)
+    assert any(r.rejected_publishes > 0 for r in got)
 
 
 def test_infeasible_broadcast_cell_is_reported():

@@ -14,9 +14,8 @@ entry point ``run_many``, against the reference's NumPy oracle.
 * **batching** — cell-axis pads are inert and lane 0 of a stacked run is
   the solo run, bitwise;
 * **regime gate and device default** — the same ``(ok, why)`` as the
-  reference, the cohort engine for a gated cell (a raise only where
-  flow-control events are reachable), and a raise for ``device="cuda"``
-  without a GPU.
+  reference, the cohort engine for a gated cell (flow-control cells
+  included), and a raise for ``device="cuda"`` without a GPU.
 
 Cells stay small: the oracle's segmented max scan is a Python loop.
 """
@@ -237,12 +236,15 @@ def test_regime_gate_matches_reference():
 def test_run_many_raises_on_a_gated_cell():
     """A cell the wave gate refuses no longer raises: it runs on the
     per-cohort engine and gives the reference's vectorized results (mss
-    feedback, a broadcast+gather cell).  Only a gated cell with reachable
-    flow-control events still raises, with the reason."""
+    feedback, a broadcast+gather cell, and a cell with reachable
+    flow-control events, a 4-message byte cap)."""
     seeds = (0, 1000)
     _, gated = _pair(arch="mss")
     assert not tdl._device_loop_ok(WaveCell(gated))[0]
-    for kw in (dict(arch="mss"), dict(pattern="broadcast_gather", npr=1)):
+    _, flow = _pair(queue_max_bytes=64 * 1024)
+    assert "flow-control" in tdl._device_loop_ok(WaveCell(flow))[1]
+    for kw in (dict(arch="mss"), dict(pattern="broadcast_gather", npr=1),
+               dict(queue_max_bytes=64 * 1024)):
         pairs = [_pair(seed=s, jitter=0.02, **kw) for s in seeds]
         got = repro_torch.run_many([p for _, p in pairs], device="cpu")
         want = VectorizedStreamSim(pairs[0][0],
@@ -252,9 +254,8 @@ def test_run_many_raises_on_a_gated_cell():
             for f in ("consume_times", "rtts", "publish_starts"):
                 np.testing.assert_allclose(getattr(g, f), getattr(w, f),
                                            rtol=1e-12, atol=0, err_msg=f)
-    _, port = _pair(queue_max_bytes=64 * 1024)
-    with pytest.raises(ValueError, match="flow-control events"):
-        repro_torch.run_many([port], device="cpu")
+            assert g.rejected_publishes == w.rejected_publishes
+            assert g.blocked_confirms == w.blocked_confirms
 
 
 def test_run_many_reports_infeasible_cells():

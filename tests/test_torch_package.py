@@ -121,7 +121,8 @@ def test_sim_params_keep_reference_defaults_and_validation():
     ref = RefParams()
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
-    assert {"vec_horizon_s", "max_events", "max_sim_time"} <= {
+    assert {"vec_horizon_s", "max_events", "max_sim_time",
+            "publish_retry_s"} <= {
         f.name for f in dataclasses.fields(port)}
     for bad in (dict(confirm_window=1), dict(prefetch=0),
                 dict(queue_max_bytes=0), dict(vec_round=3),
