@@ -14,7 +14,7 @@ dev = torch.device("cuda")
 t0 = time.perf_counter()
 _build.build("pump_assign")
 print("pump:", json.dumps(cs.check_pump(dev)), flush=True)
-cs.WALL_REPEATS = 1
+cs.COHORT_REPEATS = 1
 rows, counts = cs.drive_cohort(dev)
 for r in rows:
     print("cohort cells:", json.dumps(r), flush=True)

@@ -24,7 +24,7 @@ dev = torch.device("cuda")
 print(sys.version.split()[0], torch.__version__, torch.version.cuda,
       torch.cuda.get_device_name(0), flush=True)
 t0 = time.perf_counter()
-cs.WALL_REPEATS = 1
+cs.COHORT_REPEATS = 1
 rows, counts = cs.drive_flow(dev)
 for r in rows:
     print("flow cells:", json.dumps(r), flush=True)

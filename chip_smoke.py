@@ -37,7 +37,7 @@ tensor-core kernel):
   of the generic workload at 384 messages on dts, prs-haproxy and mss,
   Fig 4's dstream at 4 consumers x 4096 messages on dts and Fig 6's
   dstream feedback at 64 x 3072 on mss, three seed-lanes each, warm,
-  timed ``WALL_REPEATS`` times, every lane consuming every message with
+  timed ``COHORT_REPEATS`` times, every lane consuming every message with
   no pump launch and the host's reads counted; a Fig 7b cell at 8
   consumers on the GPU and on the CPU, compared; and a device-only
   ``torch.profiler`` breakdown of the Fig 7b dts cell;
@@ -46,10 +46,24 @@ tensor-core kernel):
   under a byte cap: the parity cell, 4 x 4, and the scale smoke, 64 x
   64, 8192 messages each), which take the cohort engine's credit flow
   and reject-publish overflow, three seed-lanes each, warm, timed
-  ``WALL_REPEATS`` times: every lane consuming every message and
+  ``COHORT_REPEATS`` times: every lane consuming every message and
   rejecting publishes (the parity cell's also withholding confirms), no
   confirm left withheld, no pump launch; and a work-sharing 1 x 1 cell
   under a 424-message cap on the GPU and on the CPU, compared, counters
+  exactly;
+* the chaos cells — ``run_many`` on the chaos campaign of
+  ``benchmarks/bench_chaos.py`` at its full size (``patterns.chaos_cell``:
+  work sharing of the generic workload, 4 producers x 8 consumers, 4096
+  messages, an outage over [5, 10) s): the ingress link, a broker queue
+  and a consumer failing, and consumers autoscaled from 2 to 8, on dts,
+  prs-haproxy and mss, each beside its arch's failure-free baseline,
+  one warm run each on the per-cohort engine (solo, one seed): nothing
+  lost, every duplicate a redelivery, the broker outage redelivering and
+  rejecting publishes, the link and autoscale cells redelivering
+  nothing, the link outage stretching the run by less than its length,
+  no pump launch and no confirm left withheld; and the broker and
+  consumer cells on prs-haproxy at the bench's smoke size (512 messages,
+  an outage over [1, 3) s) on the GPU and on the CPU, compared, counters
   exactly;
 * serving granite-8b at full width and depth (36 layers, random bf16
   weights from a seed), with ``attention_impl="pallas"``: the prefill
@@ -117,6 +131,10 @@ MAIN_CELLS = (
 SEEDS = (0, 1000, 2000)
 #: warm timed runs of each main-path cell (median and spread reported)
 WALL_REPEATS = 3
+#: warm timed runs of each cohort and flow cell: one, so that the smoke
+#: with its chaos phase stays well inside its time limit (these phases are
+#: host-bound, and their walls vary up to 1.8x between calls)
+COHORT_REPEATS = 1
 
 #: the cohort engine's cells, (pattern, arch, workload, consumers,
 #: messages), from the paper's grids: Fig 7a and 7b at their widest
@@ -160,6 +178,23 @@ FLOW_CELLS = (
 #: of dstream on dts, 1 x 1, 1536 msgs, a 424-message cap (both
 #: mechanisms)
 FLOW_XCHECK = ("work_sharing", 1, 1536, 424, dict(consumer_proc_s=5e-3))
+
+#: the chaos campaign at ``benchmarks/bench_chaos.py``'s full size, with
+#: ``patterns.chaos_cell``'s defaults: work sharing of the generic
+#: workload (4 MiB), 4 producers x 8 consumers, 4096 messages, consumer
+#: processing 2 ms, jitter 0, an outage over [5, 10) s; each scenario on
+#: each deployment arch, beside the arch's failure-free baseline
+CHAOS_ARCHS = ("dts", "prs-haproxy", "mss")
+CHAOS_SCENARIOS = ("baseline", "tunnel", "broker", "consumer", "autoscale")
+#: each arch's facility-ingress link (``patterns.CHAOS_LINK_TARGETS``); on
+#: dts the tunnel cell runs two vhost-isolated tenants and kills tenant
+#: 1's dedicated tunnel pair
+CHAOS_LINK = {"dts": "ttun:1", "prs-haproxy": "tunnel", "mss": "lb"}
+CHAOS_MSGS, CHAOS_WINDOW = 4096, (5.0, 10.0)
+#: the chaos cells run on the card and on the CPU, compared, at the
+#: bench's smoke size (``CHAOS_BENCH_SMOKE``)
+CHAOS_XCHECK = (("prs-haproxy", "broker"), ("prs-haproxy", "consumer"))
+CHAOS_XCHECK_MSGS, CHAOS_XCHECK_WINDOW = 512, (1.0, 3.0)
 
 #: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
 #: causal, window, logit cap).  The first is granite-8b's prefill shape
@@ -1465,7 +1500,7 @@ def _cohort_run(specs, dev) -> tuple:
 def drive_cohort(dev) -> tuple[list, dict]:
     """Every cohort cell through ``run_many`` on the card, after a warm-up
     run of each pattern on the engine at 2 consumers, timed
-    ``WALL_REPEATS`` times:
+    ``COHORT_REPEATS`` times:
     every lane consumes every message (each copy, for broadcast), no cell
     takes the wave program (no pump launch), and each ran the cohort
     engine.  Returns the per-cell rows and the launches of the runs."""
@@ -1479,7 +1514,7 @@ def drive_cohort(dev) -> tuple[list, dict]:
     for pattern, arch, wl, n, msgs in COHORT_CELLS:
         specs = _cohort_specs(pattern, arch, wl, n, msgs)
         walls, reads = [], []
-        for _ in range(WALL_REPEATS):
+        for _ in range(COHORT_REPEATS):
             res, wall, counts = _cohort_run(specs, dev)
             walls.append(wall)
             reads.append(counts.pop("host_reads"))
@@ -1520,7 +1555,7 @@ def _flow_specs(pattern: str, n: int, msgs: int, cap: int, over: dict):
 
 def drive_flow(dev) -> tuple[list, dict]:
     """Every flow cell through ``run_many`` on the card, after a warm-up
-    run of a small flow cell, timed ``WALL_REPEATS`` times: every lane
+    run of a small flow cell, timed ``COHORT_REPEATS`` times: every lane
     consumes every message, rejects publishes (and, in the parity cell,
     withholds confirms), no confirm is left withheld, no cell takes the
     wave program (no pump launch), and each ran the cohort engine.
@@ -1531,7 +1566,7 @@ def drive_flow(dev) -> tuple[list, dict]:
     for name, n, msgs, cap, over in FLOW_CELLS:
         specs = _flow_specs("feedback", n, msgs, cap, over)
         walls, reads = [], []
-        for _ in range(WALL_REPEATS):
+        for _ in range(COHORT_REPEATS):
             res, wall, counts = _cohort_run(specs, dev)
             walls.append(wall)
             reads.append(counts.pop("host_reads"))
@@ -1563,6 +1598,143 @@ def drive_flow(dev) -> tuple[list, dict]:
             throughput_msgs_s=[s.throughput_msgs_s for s in sm],
             median_rtt_s=[s.median_rtt_s for s in sm]))
     return rows, total
+
+
+def _chaos_spec(arch: str, scenario: str, msgs: int = CHAOS_MSGS,
+                window: tuple = CHAOS_WINDOW):
+    """One chaos-campaign cell, as ``patterns.chaos_cell`` builds it."""
+    from repro_torch import (
+        AutoscalePolicy, ChaosSchedule, ExperimentSpec, Injection, SimParams,
+        get_workload)
+    t0, t1 = window
+    tenants, isolation, nc, chaos = 1, "shared", 8, None
+    if scenario == "tunnel":
+        if arch == "dts":
+            tenants, isolation = 2, "vhost"
+        chaos = ChaosSchedule(injections=(
+            Injection("link", CHAOS_LINK[arch], t0, t1),))
+    elif scenario == "broker":
+        chaos = ChaosSchedule(injections=(
+            Injection("broker", "queue:work:0", t0, t1),))
+    elif scenario == "consumer":
+        chaos = ChaosSchedule(injections=(Injection("consumer", "c1", t0, t1),))
+    elif scenario == "autoscale":
+        nc = 2
+        chaos = ChaosSchedule(autoscale=AutoscalePolicy(
+            interval_s=0.25, high_backlog=32, low_backlog=4,
+            max_consumers=8, step=2))
+    return ExperimentSpec(
+        pattern="work_sharing", workload=get_workload("generic"), arch=arch,
+        n_producers=4, n_consumers=nc, total_messages=msgs, tenants=tenants,
+        tenant_isolation=isolation,
+        params=SimParams(consumer_proc_s=2e-3, jitter=0.0, chaos=chaos))
+
+
+def drive_chaos(dev, msgs: int = CHAOS_MSGS,
+                window: tuple = CHAOS_WINDOW) -> tuple[list, dict]:
+    """Every chaos cell through ``run_many`` on the card, once, warm
+    (after a small broker-outage cell): each runs the cohort engine solo
+    with no pump launch and no confirm left withheld; nothing is lost,
+    every duplicate completion is a redelivery, the broker outage
+    redelivers and rejects publishes, the link and autoscale cells
+    redeliver nothing, and the link outage stretches the run by more
+    than 0 and less than the outage's length against the arch's
+    baseline.  Returns the per-cell rows and the launches of the runs."""
+    from repro_torch import chaos_metrics
+    _cohort_run([_chaos_spec("prs-haproxy", "broker", 256, (0.2, 0.5))], dev)
+    rows, total = [], {}
+    for arch in CHAOS_ARCHS:
+        base = None
+        for scenario in CHAOS_SCENARIOS:
+            spec = _chaos_spec(arch, scenario, msgs, window)
+            (r,), wall, counts = _cohort_run([spec], dev)
+            reads = counts.pop("host_reads")
+            what = f"chaos {arch}/{scenario}"
+            if (counts.pop("runs") != 1 or counts.get("pump_assign")
+                    or counts.pop("withheld")):
+                raise AssertionError(f"{what}: {counts}: the cell did not "
+                                     f"run the cohort engine alone, or left "
+                                     f"a confirm withheld")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            sched = spec.params.chaos
+            if sched is None:
+                base = r
+                m = dict(recovery_s=0.0, duplicates=0, lost=0,
+                         redelivered=0, storm_rejects=0)
+                if r.n_consumed != msgs or r.redelivered:
+                    raise AssertionError(f"{what}: consumed {r.n_consumed}"
+                                         f", redelivered {r.redelivered}")
+            else:
+                m = chaos_metrics(r, sched, base.rejected_publishes).as_row()
+            fails = []
+            if m["lost"] or r.n_consumed != msgs + m["duplicates"]:
+                fails.append("lost messages or unaccounted completions")
+            if m["duplicates"] > r.redelivered:
+                fails.append("duplicates beyond the redeliveries")
+            if scenario == "broker" and not (r.redelivered
+                                             and r.rejected_publishes):
+                fails.append("the broker outage neither redelivered nor "
+                             "rejected publishes")
+            if scenario in ("tunnel", "autoscale") and r.redelivered:
+                fails.append("redelivered without a broker boundary")
+            stretch = r.sim_time - base.sim_time
+            if (scenario == "tunnel"
+                    and not 0.0 < stretch < window[1] - window[0]):
+                fails.append(f"the link outage stretched the run by "
+                             f"{stretch} s")
+            if fails:
+                raise AssertionError(f"{what}: {'; '.join(fails)}: {m}")
+            tp = msgs / r.sim_time
+            rows.append(dict(
+                cell=f"{arch}/{scenario}", msgs=msgs,
+                consumers=spec.n_consumers, tenants=spec.tenants,
+                wall_s=wall, events=r.n_events,
+                us_per_event=wall / r.n_events * 1e6, host_reads=reads,
+                sim_time_s=r.sim_time, stretch_s=stretch,
+                throughput_msgs_s=tp,
+                availability=tp / (msgs / base.sim_time),
+                consumed=r.n_consumed,
+                rejected=r.rejected_publishes, **m))
+    return rows, total
+
+
+def chaos_cross_check(dev) -> dict:
+    """The chaos cross-check cells on the card and on the CPU: clocks
+    compared at ``XDEV_RTOL``, counters exactly."""
+    import numpy as np
+    out = []
+    for arch, scenario in CHAOS_XCHECK:
+        spec = _chaos_spec(arch, scenario, CHAOS_XCHECK_MSGS,
+                           CHAOS_XCHECK_WINDOW)
+        (a,), wall_gpu, _ = _cohort_run([spec], dev)
+        (b,), wall_cpu, _ = _cohort_run([spec], "cpu")
+        for f in ("n_consumed", "n_events", "rejected_publishes",
+                  "blocked_confirms", "redelivered"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"chaos cross-check {arch}/{scenario}: "
+                                     f"{f} differs: {getattr(a, f)} vs "
+                                     f"{getattr(b, f)}")
+        if not np.array_equal(a.consume_producers, b.consume_producers):
+            raise AssertionError(f"chaos cross-check {arch}/{scenario}: "
+                                 f"consume producers differ")
+        worst = 0.0
+        for f in ("consume_times", "publish_starts"):
+            x, y = getattr(a, f), getattr(b, f)
+            rel = np.abs(x - y) / np.abs(y).clip(1e-300)
+            worst = max(worst, float(rel.max()))
+        if worst > XDEV_RTOL:
+            raise AssertionError(f"chaos cuda vs cpu {arch}/{scenario}: max "
+                                 f"relative deviation {worst} > {XDEV_RTOL}")
+        if not a.redelivered:
+            raise AssertionError(f"chaos cross-check {arch}/{scenario}: "
+                                 f"nothing redelivered")
+        out.append(dict(cell=f"{arch}/{scenario}/{CHAOS_XCHECK_MSGS}msgs",
+                        max_rel_dev=worst, rtol=XDEV_RTOL,
+                        redelivered=a.redelivered,
+                        rejected=a.rejected_publishes, events=a.n_events,
+                        wall_s_gpu=wall_gpu, wall_s_cpu=wall_cpu))
+    return dict(cells=out)
 
 
 def flow_cross_check(dev) -> dict:
@@ -1753,9 +1925,14 @@ def main() -> int:
     for r in rows:
         print("flow cells:", json.dumps(r))
     done("flow cells")
+    rows, by_path["chaos"] = drive_chaos(dev)
+    for r in rows:
+        print("chaos cells:", json.dumps(r))
+    done("chaos cells")
     print("cross-check:", json.dumps(cross_check(dev)))
     print("cohort cross-check:", json.dumps(cohort_cross_check(dev)))
     print("flow cross-check:", json.dumps(flow_cross_check(dev)))
+    print("chaos cross-check:", json.dumps(chaos_cross_check(dev)))
     done("cross-checks")
     print("profile:", json.dumps(profile_cell(dev)))
     print("cohort profile:", json.dumps(profile_cohort(dev)))

@@ -7,7 +7,9 @@
   CUDA kernel; every other cell (the gate's refusals, among them every
   cell where the broker's credit flow or reject-publish overflow is
   reachable, and broadcast and broadcast+gather) runs on the per-cohort
-  engine, ``TorchStreamSim``.
+  engine, ``TorchStreamSim``.  A chaos schedule (``SimParams.chaos``:
+  link, broker and consumer outages, consumer autoscaling) runs its
+  cell solo on that engine.
 * Dense-transformer serving: ``models.zoo.build_model(cfg,
   device="cuda")``, ``launch.steps.build_prefill_step`` and
   ``launch.serve.generate``, with flash attention as a hand-written CUDA
@@ -16,6 +18,9 @@
 The package imports ``torch`` and NumPy only.
 """
 
+from repro_torch.core.chaos import (
+    VALID_KINDS, AutoscalePolicy, ChaosMetrics, ChaosSchedule, Injection,
+    chaos_metrics, coerce_chaos, recovery_time)
 from repro_torch.core.metrics import Summary, summarize, throughput_msgs_per_s
 from repro_torch.core.run import STACK_MAX_LANES, run_many
 from repro_torch.core.simulator import (

@@ -72,8 +72,12 @@ def _align_paths(paths: dict) -> tuple[dict, int]:
     return out, lcp + max_mid + lcs
 
 
-def _stack_key(spec: ExperimentSpec) -> tuple:
-    """Cells that differ only in ``params.seed`` stack into one run."""
+def _stack_key(spec: ExperimentSpec, i: int) -> tuple:
+    """Cells that differ only in ``params.seed`` stack into one run; a
+    chaos cell (``i``, its place in the batch) never stacks: its epoch
+    state is the run's own."""
+    if spec.params.chaos is not None:
+        return ("solo", i)
     return (spec.pattern, spec.arch, spec.workload, spec.n_producers,
             spec.n_consumers, spec.total_messages, spec.tenants,
             spec.tenant_isolation,
@@ -297,10 +301,13 @@ class Cell:
     def _result(self, spec: ExperimentSpec, consume_t: np.ndarray,
                 rtts: Optional[np.ndarray],
                 pub_start: np.ndarray, rejected: int = 0,
-                blocked: int = 0) -> RunResult:
+                blocked: int = 0, redelivered: int = 0,
+                dups: Optional[tuple] = None) -> RunResult:
         # arrays are indexed pr*per_producer + i (work patterns) or
         # c*per_producer + i (broadcast, one producer), so producer
-        # attribution falls out of the finite-entry indices
+        # attribution falls out of the finite-entry indices.  ``dups`` is
+        # a chaos run's redelivered completions, ``(times, message
+        # indices)``: at-least-once, they join the consume stream
         fin_c = np.isfinite(consume_t)
         consume_t = consume_t[fin_c]
         fin_r = np.isfinite(rtts) if rtts is not None else None
@@ -313,6 +320,11 @@ class Cell:
         else:
             cp = np.zeros(consume_t.size, dtype=np.int64)
             rp = np.zeros(r.size, dtype=np.int64)
+        if dups is not None:
+            dup_t, dup_m = dups
+            fin_d = np.isfinite(dup_t)
+            consume_t = np.concatenate([consume_t, dup_t[fin_d]])
+            cp = np.concatenate([cp, dup_m[fin_d] // per_producer])
         top = float(consume_t.max()) if consume_t.size else 0.0
         if r.size:
             top = max(top, float(r.max()))
@@ -322,7 +334,7 @@ class Cell:
             rtts=r,
             publish_starts=np.sort(pub_start),
             rejected_publishes=rejected, blocked_confirms=blocked,
-            sim_time=top, n_events=self.n_events,
+            redelivered=redelivered, sim_time=top, n_events=self.n_events,
             consume_producers=cp, rtt_producers=rp)
 
 

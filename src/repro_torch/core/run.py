@@ -9,7 +9,8 @@ every other cell (the gate's refusals, among them every cell where the
 broker's credit flow or reject-publish overflow is reachable, and
 broadcast and broadcast+gather) goes to the per-cohort engine,
 :class:`TorchStreamSim`, which reports each lane's rejected publishes
-and withheld confirms.
+and withheld confirms.  A chaos cell (``params.chaos``) never stacks and
+the wave gate refuses it: each runs solo on the per-cohort engine.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def run_many(specs: Sequence[ExperimentSpec], device: "torch.device | str" = "cu
     results: list = [None] * len(specs)
     groups: dict = {}
     for i, spec in enumerate(specs):
-        groups.setdefault(_stack_key(spec), []).append(i)
+        groups.setdefault(_stack_key(spec, i), []).append(i)
     waves: list = []
     for idxs in groups.values():
         for lo in range(0, len(idxs), STACK_MAX_LANES):

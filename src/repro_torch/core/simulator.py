@@ -4,9 +4,10 @@ gate every engine applies.
 
 A framework-free copy of the types of the reference package's
 ``simulator`` module.  :class:`SimParams` keeps the fields the wave
-program and the per-cohort engine read, with the reference's names,
-defaults and validation; the engine selector and the chaos schedule are
-not part of this package (``run_many`` routes each cell itself).
+program and the per-cohort engine read, the chaos schedule among them,
+with the reference's names, defaults and validation; the engine
+selector is not part of this package (``run_many`` routes each cell
+itself).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.architectures import Architecture
+from repro_torch.core.chaos import ChaosSchedule, coerce_chaos
 from repro_torch.core.workloads import Workload
 
 
@@ -51,8 +53,15 @@ class SimParams:
     #: client count and shrinks alongside ``vec_round`` under detected
     #: saturation.
     vec_horizon_s: Optional[float] = None
+    #: chaos schedule: topology-epoch failure injection (link, broker and
+    #: consumer outages) and backlog-reactive consumer autoscaling; see
+    #: :mod:`repro_torch.core.chaos`.  Dicts (JSON campaign specs) are
+    #: coerced to a :class:`~repro_torch.core.chaos.ChaosSchedule`.  Chaos
+    #: cells run solo on the cohort engine (the wave gate refuses them).
+    chaos: Optional[ChaosSchedule] = None
 
     def __post_init__(self) -> None:
+        self.chaos = coerce_chaos(self.chaos)
         if self.confirm_window < 2:
             raise ValueError(
                 f"confirm_window must be >= 2, got {self.confirm_window}")

@@ -61,6 +61,9 @@ def _device_loop_ok(sim: WaveCell) -> tuple[bool, str]:
     spec, p = sim.spec, sim.p
     if spec.pattern not in WAVE_PATTERNS:
         return False, f"pattern {spec.pattern!r} is not wave-formulated"
+    if p.chaos is not None:
+        return False, ("chaos schedules change the topology mid-run; the "
+                       "wave program's schedule is static")
     if spec.total_messages // max(1, spec.n_producers) < 1:
         return False, "fewer messages than producers"
     if sim.flow_events_possible():

@@ -9,8 +9,8 @@ cohort batch, and every FIFO resource resolves its busy intervals with
 the prefix-scan closed form ``e = H + cummax(a - (H - h))``,
 ``H = cumsum(h)``.  It runs every pattern (work sharing, feedback,
 broadcast, broadcast+gather), with the broker's credit flow and
-reject-publish overflow; ``run_many`` sends it each cell the wave
-program's regime gate refuses.
+reject-publish overflow and the chaos schedules; ``run_many`` sends it
+each cell the wave program's regime gate refuses.
 
 **Layout.**  A cohort's clocks are :class:`Times`: every seed-lane on
 the device as a ``(lanes, n)`` float64 tensor, lanes first so each
@@ -44,6 +44,21 @@ device store before it is next changed.  Rejected publishes retry after
 lanes resolve their own retry cadence against their own departs), and
 confirms past a credit threshold are withheld until the queue drains to
 half of it.
+
+**Chaos.**  A chaos cell (``params.chaos``, work sharing only) runs solo,
+so every clock it reads is lane 0's, on the host.  Each epoch boundary
+is a sentinel entry of the event heap whose function changes the
+topology between batches (the horizon keeps cohorts from being served
+past it): a link outage raises the matched resources' carries to its
+end; a broker outage makes its queues reject publishes and deliver
+nothing until its end (departs inside it slide to its end), and at its
+start every delivery the broker has not acked re-enters the queue's
+front, ready at its end (at-least-once: the copy's completion is a
+duplicate); a consumer crash drops the consumer from its queue's
+rotation and requeues its unacked deliveries at once, and its respawn
+rejoins it; the autoscale tick grows or shrinks the fleet from the work
+queues' backlog.  A paused queue, and under autoscaling every work
+queue, tracks its backlog whatever its volume.
 """
 
 from __future__ import annotations
@@ -227,6 +242,14 @@ class _VecResource:
         out.index_copy_(1, up(order), end)
         return out, None
 
+    def hold_until(self, t1: float) -> None:
+        """A link outage: no new service starts before ``t1`` (every
+        carry raised to it; service already started completes).  The
+        servers keep their places, so ties resolve as the reference's
+        ``np.maximum`` of its carries leaves them."""
+        self.free = torch.clamp_min(self.free, t1)
+        self.free0 = np.maximum(self.free0, t1)
+
     def settle(self, e0: np.ndarray) -> None:
         """Mirror the new lane-0 carries from the lane-0 ends of the last
         :meth:`serve` (in the batch's order), read back by the caller."""
@@ -291,6 +314,53 @@ class TorchStreamSim(Cell):
         self._jbuf = Times(torch.empty((L, 0), dtype=F64,
                                        device=self.device), np.zeros(0))
         self._joff = 0
+        # chaos: boundaries are sentinel heap entries, outages static
+        # admission windows, redeliveries front pending segments
+        self._chaos = self.p.chaos
+        self._redelivered = 0
+        self._dup_times: list = []
+        self._dup_mem: list = []
+        self._as_extra: list = []
+        self._as_next = 0
+        if self._chaos is not None:
+            self._chaos_check()
+
+    def _chaos_check(self) -> None:
+        """Validate the chaos schedule against this cell (the reference's
+        construction-time checks)."""
+        spec = self.spec
+        if spec.pattern != "work_sharing":
+            raise ValueError("chaos schedules support pattern="
+                             f"'work_sharing' only, got {spec.pattern!r}")
+        if self._lanes > 1:
+            raise ValueError("chaos cells do not stack; run them solo")
+        for inj in self._chaos.injections:
+            if inj.kind == "link":
+                if not any(k == inj.target
+                           or k.startswith(inj.target + ":")
+                           for k in self.resources):
+                    raise ValueError(
+                        f"link injection target {inj.target!r} matches no "
+                        f"resource of architecture {self.arch.name!r}")
+            elif inj.kind == "consumer":
+                if spec.tenants > 1:
+                    raise ValueError(
+                        "consumer injections require tenants=1")
+                tgt = inj.target
+                if not (tgt.startswith("c") and tgt[1:].isdigit()
+                        and int(tgt[1:]) < spec.n_consumers):
+                    raise ValueError(
+                        f"consumer injection target {tgt!r} must name a "
+                        f"configured consumer (c0..c{spec.n_consumers - 1})")
+        if self._chaos.autoscale is not None and spec.tenants > 1:
+            raise ValueError("autoscale policies require tenants=1")
+
+    def _chaos_flow_possible(self) -> bool:
+        """Broker outages reject publishes, a flow event the static
+        :meth:`flow_events_possible` probe cannot see: they force
+        per-message publish rounds too."""
+        return (self._chaos is not None
+                and any(i.kind == "broker" for i in self._chaos.injections))
 
     # -- host <-> device -------------------------------------------------------
     def _up(self, x: np.ndarray) -> torch.Tensor:
@@ -352,6 +422,8 @@ class TorchStreamSim(Cell):
         store."""
         ch = self._channels.get(cid)
         if ch is None:
+            if cid >= self._nch:
+                self._chan_rows(cid + 1)
             ch = {"assigned": 0, "acked": 0, "since": 0, "last_tag": 0,
                   "free": torch.zeros((self._lanes, 1), dtype=F64,
                                       device=self.device), "free0": 0.0}
@@ -374,6 +446,21 @@ class TorchStreamSim(Cell):
         self._ack0 = np.pad(self._ack0, ((0, 0), (0, pad)),
                             constant_values=np.nan)
         self._cap = cap
+
+    def _chan_rows(self, n: int) -> None:
+        """Grow the channel store's channel axis to ``n`` rows: autoscaled
+        consumers take fresh ids past the configured fleet (chaos runs
+        work sharing only, so the producers' reply rows are free)."""
+        pad = n - self._nch
+        self._seen = torch.nn.functional.pad(self._seen, (0, 0, 0, pad),
+                                             value=float("nan"))
+        self._ack = torch.nn.functional.pad(self._ack, (0, 0, 0, pad),
+                                            value=float("nan"))
+        self._seen0 = np.pad(self._seen0, ((0, pad), (0, 0)),
+                             constant_values=np.nan)
+        self._ack0 = np.pad(self._ack0, ((0, pad), (0, 0)),
+                            constant_values=np.nan)
+        self._nch = n
 
     def _flat(self, store: torch.Tensor) -> torch.Tensor:
         return store.view(self._lanes, -1)
@@ -408,15 +495,16 @@ class TorchStreamSim(Cell):
     def _queue_state(self, qkey: tuple, consumers: Iterable[int], size: int,
                      *, credit: Optional[int] = None,
                      cap_msgs: Optional[int] = None,
-                     volume: int = 0) -> dict:
+                     volume: int = 0, track: bool = False) -> dict:
         """Get/create one broker queue's batched state.
 
         A queue tracks its backlog (each lane's ``n_enq`` enqueues less
         its popped releases) only when its ``volume``, the messages it
-        will ever take, exceeds its credit threshold or byte cap: a
+        will ever take, exceeds its credit threshold or byte cap (a
         backlog below both never leaves the reference's admission fast
-        path, so nothing reads its departs.  A tracked queue keeps the
-        masked depart store on the device, lane 0's cursor on the host
+        path, so nothing reads its departs), or when ``track`` asks (a
+        chaos run's paused or autoscaled queues).  A tracked queue keeps
+        the masked depart store on the device, lane 0's cursor on the host
         (``c0``), the other lanes' cursors while a host walk holds them
         (``sess``), and per lane the backlog's high-water mark ``hwm``
         and the optimistic admissions ``forced``; ``deferred`` holds the
@@ -427,7 +515,8 @@ class TorchStreamSim(Cell):
             limits = [x for x in (credit, cap_msgs) if x is not None]
             q = {"consumers": [int(c) for c in consumers], "pending": [],
                  "size": size, "credit": credit, "cap": cap_msgs,
-                 "track": bool(limits) and volume > min(limits),
+                 "track": bool(limits) and (track
+                                            or volume > min(limits)),
                  "n_enq": np.zeros(L, dtype=np.int64), "released": 0,
                  "hwm": np.zeros(L, dtype=np.int64),
                  "forced": np.zeros(L, dtype=np.int64), "deferred": []}
@@ -612,8 +701,14 @@ class TorchStreamSim(Cell):
         t = t_rej + retry
         extra = 0
         while True:
-            full_q = None
+            full_q = outage_end = None
             for q in tracked:
+                outage_end = self._outage_end(q, t)
+                if outage_end is not None:
+                    # a paused queue rejects every retry until the outage
+                    # ends: jump the cadence straight past it
+                    full_q = q
+                    break
                 c = self._cursor(q, lane)
                 c.pop(t)
                 if (q["cap"] is not None
@@ -622,7 +717,8 @@ class TorchStreamSim(Cell):
                     break
             if full_q is None:
                 break
-            nd = self._cursor(full_q, lane).next_drain()
+            nd = (outage_end if outage_end is not None
+                  else self._cursor(full_q, lane).next_drain())
             if nd is None:
                 extra += 1
                 t += retry
@@ -681,6 +777,10 @@ class TorchStreamSim(Cell):
             t_min = torch.where(self._up(att.T), t.d, torch.inf).amin(1)
         alive = None if live.all() else self._up(live)
         t0 = float(t.h[att[:, 0]].min()) if live[0] else None
+        # a chaos outage (solo cells only, so lane 0 alone) over the
+        # span of the arrivals fails the fast path like a full queue
+        down = [live[0] and self._outages_overlap(
+            q, t0, float(t.h[att[:, 0]].max())) for q in tracked]
         for i, q in enumerate(tracked):
             self._pop_lane(q, t_min if alive is None
                            else torch.where(alive, t_min, -torch.inf))
@@ -688,11 +788,12 @@ class TorchStreamSim(Cell):
             if t0 is not None:
                 c0.pop(t0)
                 c0.synced = c0.departed
-                if q["n_enq"][0] + n_att[0] - c0.departed > q["limit"]:
+                if (q["n_enq"][0] + n_att[0] - c0.departed > q["limit"]
+                        or down[i]):
                     t0 = None
             if i + 1 < len(tracked):
                 ok = (self._up(q["n_enq"] + n_att) - q["departed"]
-                      <= q["limit"])
+                      <= q["limit"]) & (not down[i])
                 alive = ok if alive is None else alive & ok
         if L > 1:
             dep = self._read(torch.stack([q["departed"] for q in tracked]))
@@ -701,6 +802,7 @@ class TorchStreamSim(Cell):
         nq = np.stack([q["n_enq"] for q in tracked])
         lim = np.array([q["limit"] for q in tracked])[:, None]
         fast = live & ~(nq + n_att - dep > lim).any(0)
+        fast[0] &= not any(down)
         for q, d in zip(tracked, dep):
             q["n_enq"][fast] += n_att[fast]
             q["hwm"][fast] = np.maximum(q["hwm"][fast],
@@ -742,6 +844,10 @@ class TorchStreamSim(Cell):
             t = th[k, lane]
             full = False
             for q, c in zip(tracked, curs):
+                # a paused queue rejects publishes like a full one
+                if self._outage_end(q, t) is not None:
+                    full = True
+                    break
                 c.pop(t)
                 if (q["cap"] is not None
                         and q["n_enq"][lane] - c.departed >= q["cap"]):
@@ -918,6 +1024,11 @@ class TorchStreamSim(Cell):
             batch = self._pop_batch()
             if batch is None:
                 break
+            fn = batch.get("chaos_fn")
+            if fn is not None:
+                # an epoch boundary: change the topology between batches
+                fn(batch["t_evt"])
+                continue
             self._serve_slot(batch)
 
     def _tail_step(self) -> bool:
@@ -953,6 +1064,261 @@ class TorchStreamSim(Cell):
             self._drain()
             if not self._tail_step():
                 return
+
+    # -- chaos runtime (epoch boundaries, outage admission, redelivery) --------
+    def _push_chaos(self, t: float, fn: Callable[[float], None]) -> None:
+        """Schedule one epoch boundary as a sentinel heap entry."""
+        heapq.heappush(self._heap, (float(t), next(self._seq),
+                                    {"chaos_fn": fn, "t_evt": float(t)}))
+
+    def _chaos_down_queues(self, nq: int, q_home: np.ndarray) -> list:
+        """Each broker injection with the work queues it pauses:
+        ``[(injection, queue indices), ...]``."""
+        spec = self.spec
+        T = spec.tenants if (spec.tenants > 1
+                             and spec.tenant_isolation == "vhost") else 1
+        return [(inj, self._chaos_queue_indices(inj.target, nq, nq // T,
+                                                q_home, self.inv.n_dsn))
+                for inj in self._chaos.injections if inj.kind == "broker"]
+
+    def _chaos_setup(self, nq: int, down: list) -> None:
+        """Attach the broker injections' outages ``down`` (from
+        :meth:`_chaos_down_queues`) to their queues, and schedule every
+        epoch boundary (called from ``_setup_work``)."""
+        sched = self._chaos
+        broker = iter(down)
+        for inj in sched.injections:
+            if inj.kind == "link":
+                keys = [k for k in self.resources
+                        if k == inj.target or k.startswith(inj.target + ":")]
+                self._push_chaos(inj.t0,
+                                 lambda t, ks=keys, t1=inj.t1:
+                                 self._chaos_link_down(ks, t1))
+            elif inj.kind == "broker":
+                _, qis = next(broker)
+                for qi in qis:
+                    q = self._queues[("work", qi)]
+                    q.setdefault("outages", []).append((inj.t0, inj.t1))
+                    q.setdefault("log", [])
+                self._push_chaos(inj.t0,
+                                 lambda t, qs=tuple(qis), t1=inj.t1:
+                                 self._chaos_queues_down(qs, t, t1))
+                self._push_chaos(inj.t1,
+                                 lambda t, qs=tuple(qis):
+                                 self._pump_queues([("work", qi)
+                                                    for qi in qs]))
+            else:                       # consumer
+                cidx = int(inj.target[1:])
+                self._queues[("work", cidx % nq)].setdefault("log", [])
+                self._push_chaos(inj.t0,
+                                 lambda t, c=cidx:
+                                 self._chaos_consumer_down(c, t))
+                self._push_chaos(inj.t1,
+                                 lambda t, c=cidx:
+                                 self._chaos_consumer_up(c))
+        if sched.autoscale is not None:
+            self._as_next = self.spec.n_consumers
+            self._chaos_work_qkeys = [("work", qi) for qi in range(nq)]
+            self._push_chaos(sched.autoscale.interval_s,
+                             self._chaos_autoscale_tick)
+
+    @staticmethod
+    def _chaos_queue_indices(target: str, nq: int, nq_t: int,
+                             q_home: np.ndarray, n_dsn: int) -> list[int]:
+        """Map a broker-injection target to work-queue indices, in the
+        heap broker's declare order and grammar: ``queue:<name>`` (name
+        as the heap broker declares it, e.g. ``work:0`` or
+        ``t1/work:0``), ``node:<k>`` (queues homed on DSN node ``k``) or
+        ``vhost:t<t>`` (a tenant's queue block)."""
+        kind, _, val = target.partition(":")
+        if kind == "queue":
+            try:
+                if "/" in val:
+                    vh, base = val.split("/", 1)
+                    qis = [int(vh[1:]) * nq_t
+                           + int(base.rsplit(":", 1)[1])]
+                else:
+                    qis = [int(val.rsplit(":", 1)[1])]
+            except (IndexError, ValueError):
+                raise ValueError(f"unknown queue in broker injection "
+                                 f"target {target!r}") from None
+            if not all(0 <= qi < nq for qi in qis):
+                raise ValueError(f"unknown queue in broker injection "
+                                 f"target {target!r}")
+        elif kind == "node":
+            node = int(val)
+            if not 0 <= node < n_dsn:
+                raise ValueError(
+                    f"broker injection target {target!r} names no DSN "
+                    f"node (cluster has {n_dsn})")
+            # empty match allowed: a node homing no work queue is a
+            # no-op fault (the redundancy the availability sweep probes)
+            return [qi for qi in range(nq) if int(q_home[qi]) == node]
+        elif kind == "vhost":
+            t = int(val[1:])
+            qis = list(range(t * nq_t, (t + 1) * nq_t))
+        else:
+            raise ValueError(f"broker injection target {target!r} must be "
+                             "'queue:<name>', 'node:<k>' or 'vhost:<v>'")
+        if not qis:
+            raise ValueError(f"broker injection target {target!r} matches "
+                             "no queue")
+        return qis
+
+    def _chaos_link_down(self, keys: list[str], t1: float) -> None:
+        """A link outage at its t0 boundary: the matched resources start
+        no new service until ``t1``."""
+        for k in keys:
+            self.resources[k].hold_until(t1)
+
+    @staticmethod
+    def _outage_end(q: dict, t: float) -> Optional[float]:
+        """End of the outage window covering time ``t`` (None if up)."""
+        for (o0, o1) in q.get("outages") or ():
+            if o0 <= t < o1:
+                return o1
+        return None
+
+    @staticmethod
+    def _outages_overlap(q: dict, lo: float, hi: float) -> bool:
+        """Any outage window intersecting arrival span ``[lo, hi]``."""
+        return any(o0 <= hi and o1 > lo
+                   for (o0, o1) in q.get("outages") or ())
+
+    @staticmethod
+    def _chaos_clamp(q: dict, depart: Times) -> Times:
+        """A paused queue delivers nothing: departs landing inside an
+        outage window slide to its end (the heap broker's unpause pump),
+        on the device and on the host."""
+        d, h = depart.d, depart.h
+        for (o0, o1) in q["outages"]:
+            d = d.masked_fill((d >= o0) & (d < o1), o1)
+            h = np.where((h >= o0) & (h < o1), o1, h)
+        return Times(d, h)
+
+    @staticmethod
+    def _chaos_log(q: dict, cohort: dict, m: np.ndarray, cons: np.ndarray,
+                   j: np.ndarray, depart: Times) -> None:
+        """Log released deliveries on a queue a boundary may requeue: the
+        cohort, members, consumers, delivery tags, lane-0 departs and a
+        requeued flag."""
+        if "log" in q:
+            q["log"].append((cohort, m.copy(), cons.copy(), j.copy(),
+                             depart.h.copy(), np.zeros(m.size, dtype=bool)))
+
+    def _chaos_queues_down(self, qis: tuple, t0: float, t1: float) -> None:
+        """A broker/vhost outage at its t0 boundary: requeue the
+        broker-unacked deliveries to the front of each paused queue,
+        ready at ``t1``."""
+        touched = [("work", qi) for qi in qis
+                   if self._chaos_requeue(("work", qi), t0, t1)]
+        if touched:
+            self._pump_queues(touched)
+
+    def _chaos_requeue(self, qkey: tuple, t_cut: float, t_ready: float,
+                       cons_filter: Optional[int] = None) -> int:
+        """Re-enter every delivery that departed by ``t_cut`` but was
+        still unacked at the broker then (its ack, from the host's
+        lane-0 ack clocks, after ``t_cut`` or not yet known) as a front
+        pending segment ready at ``t_ready``: at-least-once redelivery,
+        the original completion stands and the copy's is a duplicate.
+        Returns the redelivery count."""
+        q = self._queues[qkey]
+        mem, cohort0 = [], None
+        for cohort, m_sl, cons, j_all, dep, used in q.get("log") or ():
+            sel = (dep <= t_cut) & ~used
+            if cons_filter is not None:
+                sel &= cons == cons_filter
+            r = np.nonzero(sel)[0]
+            if r.size == 0:
+                continue
+            # unacked: no ack yet (NaN) or one after the cut
+            r = r[~(self._ack0[cons[r], j_all[r]] <= t_cut)]
+            if r.size:
+                used[r] = True
+                mem.append(m_sl[r])
+                cohort0 = cohort
+        if not mem:
+            return 0
+        midx = np.concatenate(mem).astype(np.int64)
+        n = midx.size
+        q["pending"].insert(0, {
+            "cohort": dict(cohort0, on_seen=self._chaos_dup_seen),
+            "idx": midx, "pos": 0,
+            "t": Times(torch.full((self._lanes, n), float(t_ready),
+                                  dtype=F64, device=self.device),
+                       np.full(n, float(t_ready)))})
+        self._redelivered += n
+        return n
+
+    def _chaos_dup_seen(self, mem: np.ndarray, t_done: Times,
+                        cons: np.ndarray) -> None:
+        """``on_seen`` of redelivered copies: record duplicate completions
+        without overwriting the original consume times."""
+        self._dup_times.append(t_done.h.copy())
+        self._dup_mem.append(np.asarray(mem, dtype=np.int64).copy())
+
+    def _chaos_consumer_down(self, cidx: int, t_evt: float) -> None:
+        """A consumer crash: leave the round-robin rotation and requeue
+        the crashed channel's unacked deliveries, ready at once (the
+        surviving consumers pick them up)."""
+        qk = self._chan_queue.get(cidx)
+        if qk is None:
+            return
+        q = self._queues[qk]
+        if cidx in q["consumers"]:
+            q["consumers"].remove(cidx)
+        self._chaos_requeue(qk, t_evt, t_evt, cons_filter=cidx)
+        self._pump_queues([qk])
+
+    def _chaos_consumer_up(self, cidx: int) -> None:
+        """A consumer respawn: rejoin the rotation and pump."""
+        qk = self._chan_queue.get(cidx)
+        if qk is None:
+            return
+        q = self._queues[qk]
+        if cidx not in q["consumers"]:
+            q["consumers"].append(cidx)
+        self._pump_queues([qk])
+
+    def _chaos_autoscale_tick(self, t_evt: float) -> None:
+        """Backlog-reactive consumer elasticity: compare the work queues'
+        undelivered backlog to the policy's thresholds, grow with fresh
+        consumer ids (never reused) or retire the most recent extras,
+        then re-schedule while the run still has events."""
+        pol = self._chaos.autoscale
+        # the ready backlog at the tick's clock, from lane 0's enqueue
+        # count and depart cursor, which it leaves as they are:
+        # enqueues less every release that departed by t_evt
+        backlog = 0
+        for qk in self._chaos_work_qkeys:
+            q = self._queues[qk]
+            c0 = q["c0"]
+            left = c0.departed + sum(1 for d in c0.heap if d <= t_evt)
+            backlog += int(q["n_enq"][0] - left)
+        nq = len(self._chaos_work_qkeys)
+        cur = self.spec.n_consumers + len(self._as_extra)
+        pumped = []
+        if backlog > pol.high_backlog and cur < pol.max_consumers:
+            for _ in range(min(pol.step, pol.max_consumers - cur)):
+                c = self._as_next
+                self._as_next += 1
+                self._as_extra.append(c)
+                qk = ("work", c % nq)
+                self._queues[qk]["consumers"].append(c)
+                self._chan_queue[c] = qk
+                pumped.append(qk)
+        elif backlog < pol.low_backlog and self._as_extra:
+            for _ in range(min(pol.step, len(self._as_extra))):
+                c = self._as_extra.pop()
+                q = self._queues[self._chan_queue[c]]
+                if c in q["consumers"]:
+                    q["consumers"].remove(c)
+        if pumped:
+            self._pump_queues(pumped)
+        if self._heap:
+            self._push_chaos(t_evt + pol.interval_s,
+                             self._chaos_autoscale_tick)
 
     # -- prefetch-windowed delivery (the batched broker pump) ------------------
     def _deliver_queue(self, qkey: tuple, consumers: list, t_ready: Times,
@@ -1014,6 +1380,10 @@ class TorchStreamSim(Cell):
             q = self._queues[qk]
             ids = q["consumers"]
             while q["pending"]:
+                if not ids:
+                    # every consumer crashed off this queue (chaos): the
+                    # backlog waits for a respawn or an autoscale pump
+                    break
                 seg = q["pending"][0]
                 n_rem = seg["idx"].size - seg["pos"]
                 k = len(ids)
@@ -1029,10 +1399,14 @@ class TorchStreamSim(Cell):
                     t_sl = Times(st.d[:, lo:lo + n_rem], st.h[lo:lo + n_rem])
                     m_sl = seg["idx"][lo:lo + n_rem]
                     cons, j_all, depart = self._rr_assign(ids, t_sl, P)
+                    if "outages" in q:
+                        depart = self._chaos_clamp(q, depart)
                     q["consumers"] = ids = ids[n_rem % k:] + ids[:n_rem % k]
                     releases.setdefault(id(seg["cohort"]), []).append(
                         (seg["cohort"], m_sl, cons, j_all, depart))
                     self._record_departs(q, depart)
+                    self._chaos_log(q, seg["cohort"], m_sl, cons, j_all,
+                                    depart)
                     seg["pos"] += n_rem
                     q["pending"].pop(0)
                     continue
@@ -1043,9 +1417,12 @@ class TorchStreamSim(Cell):
                 rel, ids = self._assign_chunk(seg, ids, P)
                 q["consumers"] = ids
                 if rel is not None:
+                    if "outages" in q:
+                        rel = rel[:3] + (self._chaos_clamp(q, rel[3]),)
                     releases.setdefault(id(seg["cohort"]), []).append(
                         (seg["cohort"],) + rel)
                     self._record_departs(q, rel[3])
+                    self._chaos_log(q, seg["cohort"], *rel)
                 if seg["pos"] == seg["idx"].size:
                     q["pending"].pop(0)
                 break
@@ -1473,9 +1850,17 @@ class TorchStreamSim(Cell):
         cap = (p.queue_max_bytes // size if p.queue_max_bytes else None)
         rcap = (p.queue_max_bytes // reply_size if p.queue_max_bytes
                 else None)
+        # chaos: a paused queue rejects publishes whatever its backlog,
+        # and the autoscale tick reads every work queue's: those track
+        down, track = [], set()
+        if self._chaos is not None:
+            down = self._chaos_down_queues(nq, q_home)
+            track = (set(range(nq)) if self._chaos.autoscale is not None
+                     else {qi for _, qis in down for qi in qis})
         work_q = [self._queue_state(("work", qi), q_consumers[qi], size,
                                     credit=FLOW_CREDIT * q_pubs[qi],
-                                    cap_msgs=cap, volume=int(volume[qi]))
+                                    cap_msgs=cap, volume=int(volume[qi]),
+                                    track=qi in track)
                   for qi in range(nq)]
         if feedback:
             for pr in range(nP):
@@ -1484,10 +1869,12 @@ class TorchStreamSim(Cell):
 
         R = max(1, min(W, self._round))
         # flow-control events reachable (a byte cap below the per-queue
-        # volume, or a publish surplus that can pile backlog past the
-        # credit threshold): per-message rounds reproduce the heap
-        # engine's burst-and-retry dynamics at the blocking boundary
-        if self.p.vec_round is None and self.flow_events_possible():
+        # volume, a publish surplus that can pile backlog past the
+        # credit threshold, or a chaos broker outage that rejects
+        # publishes): per-message rounds reproduce the heap engine's
+        # burst-and-retry dynamics at the blocking boundary
+        if self.p.vec_round is None and (self.flow_events_possible()
+                                         or self._chaos_flow_possible()):
             R = 1
         n_rounds = -(-M // R)
         # per-producer resolved-confirm prefixes: round r may launch once
@@ -1630,6 +2017,8 @@ class TorchStreamSim(Cell):
                 flow="reply_publish_path", size=reply_size,
                 combos_of=combos_of, groups_of=groups_of, deliver=deliver)
 
+        if self._chaos is not None:
+            self._chaos_setup(nq, down)
         advance_pubs()
         self._fin = (consume_t, rtts, pub_start)
 
@@ -1800,6 +2189,9 @@ class TorchStreamSim(Cell):
                 self._flush(q)
         consume_t, rtts, pub_start = (
             None if x is None else self._read(x) for x in self._fin)
+        # a chaos run's duplicate completions (solo: lane 0's)
+        dups = ((np.concatenate(self._dup_times),
+                 np.concatenate(self._dup_mem)) if self._dup_times else None)
         out = []
         for s, seed in enumerate(self.stack_seeds):
             spec_s = dataclasses.replace(
@@ -1807,5 +2199,6 @@ class TorchStreamSim(Cell):
             out.append(self._result(
                 spec_s, consume_t[s], None if rtts is None else rtts[s],
                 pub_start[s], rejected=int(self.rejected[s]),
-                blocked=int(self.blocked[s])))
+                blocked=int(self.blocked[s]), redelivered=self._redelivered,
+                dups=dups))
         return out
