@@ -29,8 +29,10 @@ tensor-core kernel):
 
 * the wave path — ``run_many`` at deployment scale (1024x1024
   work-sharing on dts, prs-haproxy and mss, 256x256 feedback on dts,
-  three seed-lanes each); the same Fig 4 cell run on the GPU and on the
-  CPU, compared; and a ``torch.profiler`` breakdown of one cell;
+  three seed-lanes each, built by ``patterns.pattern_spec`` with
+  ``engine="jax", jax_device_loop=True``, the reference's opt-in to the
+  wave program); the same Fig 4 cell run on the GPU and on the CPU,
+  compared; and a ``torch.profiler`` breakdown of one cell;
 * the cohort path — ``run_many`` on the cells the wave gate refuses and
   on the broadcast patterns, which go to the per-cohort engine: Fig 7a
   (broadcast, 64 consumers) and Fig 7b (broadcast+gather, 32 consumers)
@@ -51,20 +53,33 @@ tensor-core kernel):
   confirm left withheld, no pump launch; and a work-sharing 1 x 1 cell
   under a 424-message cap on the GPU and on the CPU, compared, counters
   exactly;
-* the chaos cells — ``run_many`` on the chaos campaign of
-  ``benchmarks/bench_chaos.py`` at its full size (``patterns.chaos_cell``:
-  work sharing of the generic workload, 4 producers x 8 consumers, 4096
+* the chaos cells — ``patterns.chaos_campaign`` at its defaults, the
+  chaos campaign of ``benchmarks/bench_chaos.py`` at its full size (work
+  sharing of the generic workload, 4 producers x 8 consumers, 4096
   messages, an outage over [5, 10) s): the ingress link, a broker queue
   and a consumer failing, and consumers autoscaled from 2 to 8, on dts,
-  prs-haproxy and mss, each beside its arch's failure-free baseline,
-  one warm run each on the per-cohort engine (solo, one seed): nothing
+  prs-haproxy and mss, each beside its arch's failure-free baseline, in
+  one warm ``run_many`` on the per-cohort engine (each cell solo): nothing
   lost, every duplicate a redelivery, the broker outage redelivering and
   rejecting publishes, the link and autoscale cells redelivering
   nothing, the link outage stretching the run by less than its length,
-  no pump launch and no confirm left withheld; and the broker and
-  consumer cells on prs-haproxy at the bench's smoke size (512 messages,
-  an outage over [1, 3) s) on the GPU and on the CPU, compared, counters
-  exactly;
+  no pump launch and no confirm left withheld, and each point's
+  scoreboard printed; and the broker and consumer cells on prs-haproxy
+  at the bench's smoke size (512 messages, an outage over [1, 3) s) on
+  the GPU and on the CPU, compared, counters exactly;
+* the experiment layer — ``run_pattern`` on the main path's feedback
+  cell, each seed solo on the wave program (pump launches), its
+  summaries inside the ``device_loop.*`` bands of the main path's
+  stacked lanes; ``run_campaign`` of Fig 6's feedback at 64 consumers x
+  16384 messages on dts and mss, in-process, the dts group on the wave
+  program (pump launches) and the mss group on the cohort engine (none),
+  every summary reporting the jax engine; ``deployment_feasibility`` at
+  1, 8 and 64 tenants, its curves and headline;
+* the availability crossover — ``availability_crossover`` at the
+  reference's defaults but for the outage durations, 5, 40 and 80 s of
+  its five (single-fault ingress outages on dts and mss, 12 solo cohort
+  cells), nothing lost in any cell, its curves, crossover duration and
+  headline printed;
 * serving granite-8b at full width and depth (36 layers, random bf16
   weights from a seed), with ``attention_impl="pallas"``: the prefill
   step on 4 requests x 4096 prompt tokens (flash attention once per
@@ -99,6 +114,8 @@ last line the device.  Any failure exits nonzero; without CUDA it exits
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -179,22 +196,35 @@ FLOW_CELLS = (
 #: mechanisms)
 FLOW_XCHECK = ("work_sharing", 1, 1536, 424, dict(consumer_proc_s=5e-3))
 
-#: the chaos campaign at ``benchmarks/bench_chaos.py``'s full size, with
-#: ``patterns.chaos_cell``'s defaults: work sharing of the generic
+#: the chaos campaign runs ``patterns.chaos_campaign`` at its defaults,
+#: ``benchmarks/bench_chaos.py``'s full size: work sharing of the generic
 #: workload (4 MiB), 4 producers x 8 consumers, 4096 messages, consumer
 #: processing 2 ms, jitter 0, an outage over [5, 10) s; each scenario on
-#: each deployment arch, beside the arch's failure-free baseline
-CHAOS_ARCHS = ("dts", "prs-haproxy", "mss")
-CHAOS_SCENARIOS = ("baseline", "tunnel", "broker", "consumer", "autoscale")
-#: each arch's facility-ingress link (``patterns.CHAOS_LINK_TARGETS``); on
-#: dts the tunnel cell runs two vhost-isolated tenants and kills tenant
-#: 1's dedicated tunnel pair
-CHAOS_LINK = {"dts": "ttun:1", "prs-haproxy": "tunnel", "mss": "lb"}
-CHAOS_MSGS, CHAOS_WINDOW = 4096, (5.0, 10.0)
-#: the chaos cells run on the card and on the CPU, compared, at the
-#: bench's smoke size (``CHAOS_BENCH_SMOKE``)
+#: each deployment arch, beside the arch's failure-free baseline.  The
+#: chaos cells run on the card and on the CPU, compared, at the bench's
+#: smoke size (``CHAOS_BENCH_SMOKE``)
 CHAOS_XCHECK = (("prs-haproxy", "broker"), ("prs-haproxy", "consumer"))
 CHAOS_XCHECK_MSGS, CHAOS_XCHECK_WINDOW = 512, (1.0, 3.0)
+
+#: the experiment layer's cells: (a) ``run_pattern`` on the main path's
+#: feedback cell, each seed solo; (b) a campaign of Fig 6's feedback at
+#: 64 consumers x 16384 messages (256 a producer, inside the wave gate's
+#: feedback corridor W < M <= 2W at the confirm window of 128) on dts,
+#: which the gate takes, and mss, which it refuses; (c) the deployment
+#: study at three of ``TENANT_SWEEP``'s seven tenant counts
+EXP_PATTERN = ("feedback", "dts", 256, 65536)
+EXP_CAMPAIGN = dict(name="fig6 c64", patterns=("feedback",),
+                    architectures=("dts", "mss"), workloads=("dstream",),
+                    consumers=(64,), n_runs=len(SEEDS), total_messages=16384,
+                    params={"engine": "jax", "jax_device_loop": True})
+EXP_TENANTS = (1, 8, 64)
+#: the availability crossover's outage durations: three of the reference's
+#: five (5, 20, 40, 80, 120 s), so that the smoke stays inside its time
+#: limit; 40 and 80 s bracket the crossover, so its duration is the one
+#: the five give
+AVAIL_DURATIONS = (5.0, 40.0, 80.0)
+#: the cells that opt in to the wave program, as the reference's do
+WAVE = dict(engine="jax", jax_device_loop=True)
 
 #: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
 #: causal, window, logit cap).  The first is granite-8b's prefill shape
@@ -1358,11 +1388,10 @@ def drive_decode_ctx(model) -> tuple:
 
 
 def _specs(pattern: str, arch: str, n: int, msgs: int):
-    from repro_torch import ExperimentSpec, SimParams, get_workload
-    return [ExperimentSpec(pattern=pattern, workload=get_workload("dstream"),
-                           arch=arch, n_producers=n, n_consumers=n,
-                           total_messages=msgs, params=SimParams(seed=s))
-            for s in SEEDS]
+    """A wave cell's seed-lanes, opted in to the wave program."""
+    from repro_torch import pattern_spec
+    return [pattern_spec(pattern, arch, "dstream", n, total_messages=msgs,
+                         seed=s, **WAVE) for s in SEEDS]
 
 
 def drive_main_path(dev) -> tuple[list, int]:
@@ -1481,20 +1510,25 @@ def _cohort_specs(pattern: str, arch: str, workload: str, n: int, msgs: int):
         params=SimParams(seed=s, **extra)) for s in SEEDS]
 
 
-def _cohort_run(specs, dev) -> tuple:
-    """One ``run_many`` of ``specs`` with the launches, the cohort runs
-    and the host reads counted from 0: ``(results, wall, counts)``."""
+def _counted(fn):
+    """``fn()`` with the launches, the cohort runs and the host reads
+    counted from 0: ``(result, wall, counts)``."""
     import torch
-    from repro_torch import run_many
     from repro_torch.core.torch_engine import TorchStreamSim
     _reset_launches()
     TorchStreamSim.stats.update(runs=0, host_reads=0, withheld=0)
     t0 = time.perf_counter()
-    res = run_many(specs, device=dev)
-    if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return res, wall, dict(_launches(), **TorchStreamSim.stats)
+    return out, wall, dict(_launches(), **TorchStreamSim.stats)
+
+
+def _cohort_run(specs, dev) -> tuple:
+    """One ``run_many`` of ``specs`` with the launches, the cohort runs
+    and the host reads counted from 0: ``(results, wall, counts)``."""
+    from repro_torch import run_many
+    return _counted(lambda: run_many(specs, device=dev))
 
 
 def drive_cohort(dev) -> tuple[list, dict]:
@@ -1506,7 +1540,6 @@ def drive_cohort(dev) -> tuple[list, dict]:
     engine.  Returns the per-cell rows and the launches of the runs."""
     from repro_torch import summarize
     for pattern in sorted({c[0] for c in COHORT_CELLS}):
-        # 300 msgs a producer keeps the work patterns off the wave program
         bc = pattern.startswith("broadcast")
         _cohort_run(_cohort_specs(pattern, "dts", "generic" if bc else
                                   "dstream", 2, 32 if bc else 600), dev)
@@ -1600,103 +1633,269 @@ def drive_flow(dev) -> tuple[list, dict]:
     return rows, total
 
 
-def _chaos_spec(arch: str, scenario: str, msgs: int = CHAOS_MSGS,
-                window: tuple = CHAOS_WINDOW):
-    """One chaos-campaign cell, as ``patterns.chaos_cell`` builds it."""
-    from repro_torch import (
-        AutoscalePolicy, ChaosSchedule, ExperimentSpec, Injection, SimParams,
-        get_workload)
-    t0, t1 = window
-    tenants, isolation, nc, chaos = 1, "shared", 8, None
-    if scenario == "tunnel":
-        if arch == "dts":
-            tenants, isolation = 2, "vhost"
-        chaos = ChaosSchedule(injections=(
-            Injection("link", CHAOS_LINK[arch], t0, t1),))
-    elif scenario == "broker":
-        chaos = ChaosSchedule(injections=(
-            Injection("broker", "queue:work:0", t0, t1),))
-    elif scenario == "consumer":
-        chaos = ChaosSchedule(injections=(Injection("consumer", "c1", t0, t1),))
-    elif scenario == "autoscale":
-        nc = 2
-        chaos = ChaosSchedule(autoscale=AutoscalePolicy(
-            interval_s=0.25, high_backlog=32, low_backlog=4,
-            max_consumers=8, step=2))
-    return ExperimentSpec(
-        pattern="work_sharing", workload=get_workload("generic"), arch=arch,
-        n_producers=4, n_consumers=nc, total_messages=msgs, tenants=tenants,
-        tenant_isolation=isolation,
-        params=SimParams(consumer_proc_s=2e-3, jitter=0.0, chaos=chaos))
+@contextlib.contextmanager
+def _recorded_runs():
+    """Record the results of every ``run_many`` call the experiment
+    layer's drivers make, so that the smoke holds each cell without
+    running it twice; yields the list of each call's results."""
+    from repro_torch.core import patterns
+    calls, real = [], patterns.run_many
+
+    def record(specs, **kw):
+        calls.append(real(specs, **kw))
+        return calls[-1]
+
+    patterns.run_many = record
+    try:
+        yield calls
+    finally:
+        patterns.run_many = real
 
 
-def drive_chaos(dev, msgs: int = CHAOS_MSGS,
-                window: tuple = CHAOS_WINDOW) -> tuple[list, dict]:
-    """Every chaos cell through ``run_many`` on the card, once, warm
-    (after a small broker-outage cell): each runs the cohort engine solo
-    with no pump launch and no confirm left withheld; nothing is lost,
-    every duplicate completion is a redelivery, the broker outage
-    redelivers and rejects publishes, the link and autoscale cells
-    redeliver nothing, and the link outage stretches the run by more
-    than 0 and less than the outage's length against the arch's
-    baseline.  Returns the per-cell rows and the launches of the runs."""
+def _chaos_holds(r, what: str) -> dict:
+    """Nothing lost and every duplicate completion a redelivery: the
+    chaos run's scoreboard as a row."""
     from repro_torch import chaos_metrics
-    _cohort_run([_chaos_spec("prs-haproxy", "broker", 256, (0.2, 0.5))], dev)
-    rows, total = [], {}
-    for arch in CHAOS_ARCHS:
-        base = None
-        for scenario in CHAOS_SCENARIOS:
-            spec = _chaos_spec(arch, scenario, msgs, window)
-            (r,), wall, counts = _cohort_run([spec], dev)
-            reads = counts.pop("host_reads")
-            what = f"chaos {arch}/{scenario}"
-            if (counts.pop("runs") != 1 or counts.get("pump_assign")
-                    or counts.pop("withheld")):
-                raise AssertionError(f"{what}: {counts}: the cell did not "
-                                     f"run the cohort engine alone, or left "
-                                     f"a confirm withheld")
-            for k, v in counts.items():
-                total[k] = total.get(k, 0) + v
-            sched = spec.params.chaos
-            if sched is None:
-                base = r
-                m = dict(recovery_s=0.0, duplicates=0, lost=0,
-                         redelivered=0, storm_rejects=0)
-                if r.n_consumed != msgs or r.redelivered:
-                    raise AssertionError(f"{what}: consumed {r.n_consumed}"
-                                         f", redelivered {r.redelivered}")
-            else:
-                m = chaos_metrics(r, sched, base.rejected_publishes).as_row()
-            fails = []
-            if m["lost"] or r.n_consumed != msgs + m["duplicates"]:
-                fails.append("lost messages or unaccounted completions")
-            if m["duplicates"] > r.redelivered:
-                fails.append("duplicates beyond the redeliveries")
-            if scenario == "broker" and not (r.redelivered
-                                             and r.rejected_publishes):
-                fails.append("the broker outage neither redelivered nor "
-                             "rejected publishes")
-            if scenario in ("tunnel", "autoscale") and r.redelivered:
-                fails.append("redelivered without a broker boundary")
-            stretch = r.sim_time - base.sim_time
-            if (scenario == "tunnel"
-                    and not 0.0 < stretch < window[1] - window[0]):
+    m = chaos_metrics(r, r.spec.params.chaos).as_row()
+    if m["lost"] or r.n_consumed != r.spec.total_messages + m["duplicates"]:
+        raise AssertionError(f"{what}: lost messages or unaccounted "
+                             f"completions: {m}")
+    if m["duplicates"] > r.redelivered:
+        raise AssertionError(f"{what}: duplicates beyond the redeliveries: "
+                             f"{m}")
+    return m
+
+
+def drive_chaos(dev) -> tuple[list, dict, dict]:
+    """The chaos scoreboard through ``patterns.chaos_campaign`` on the card
+    at its full size, warm (after a small broker-outage cell): one
+    ``run_many`` of the 15 cells, each solo on the cohort engine with no
+    pump launch and no confirm left withheld; nothing is lost, every
+    duplicate completion is a redelivery, the broker outage redelivers
+    and rejects publishes, the link and autoscale cells redeliver
+    nothing, and the link outage stretches the run by more than 0 and
+    less than the outage's length against the arch's baseline.  Returns
+    the per-point rows (the scoreboard beside each cell's hops), the
+    launches, and the phase's wall and counts."""
+    from repro_torch.core.patterns import chaos_campaign, chaos_cell
+    _cohort_run([chaos_cell("prs-haproxy", "broker", total_messages=256,
+                            t0=0.2, t1=0.5)], dev)
+    with _recorded_runs() as calls:
+        points, wall, counts = _counted(lambda: chaos_campaign(device=dev))
+    (results,) = calls
+    if (counts.pop("runs") != len(points) or counts.get("pump_assign")
+            or counts.pop("withheld")):
+        raise AssertionError(f"chaos campaign: {counts}: the cells did not "
+                             f"each run the cohort engine alone, or left a "
+                             f"confirm withheld")
+    reads = counts.pop("host_reads")
+    rows, base = [], None
+    for p, r in zip(points, results):
+        what = f"chaos {p.arch}/{p.scenario}"
+        sched = r.spec.params.chaos
+        if r.spec.arch != p.arch or not p.feasible:
+            raise AssertionError(f"{what}: infeasible or out of order")
+        if sched is None:
+            base = r
+            if r.n_consumed != r.spec.total_messages or r.redelivered:
+                raise AssertionError(f"{what}: consumed {r.n_consumed}, "
+                                     f"redelivered {r.redelivered}")
+        else:
+            _chaos_holds(r, what)
+        fails = []
+        if p.scenario == "broker" and not (p.redelivered
+                                           and p.storm_rejects):
+            fails.append("the broker outage neither redelivered nor "
+                         "rejected publishes")
+        if p.scenario in ("tunnel", "autoscale") and p.redelivered:
+            fails.append("redelivered without a broker boundary")
+        stretch = r.sim_time - base.sim_time
+        if p.scenario == "tunnel":
+            t0, t1 = sched.outage_span()
+            if not 0.0 < stretch < t1 - t0:
                 fails.append(f"the link outage stretched the run by "
                              f"{stretch} s")
-            if fails:
-                raise AssertionError(f"{what}: {'; '.join(fails)}: {m}")
-            tp = msgs / r.sim_time
-            rows.append(dict(
-                cell=f"{arch}/{scenario}", msgs=msgs,
-                consumers=spec.n_consumers, tenants=spec.tenants,
-                wall_s=wall, events=r.n_events,
-                us_per_event=wall / r.n_events * 1e6, host_reads=reads,
-                sim_time_s=r.sim_time, stretch_s=stretch,
-                throughput_msgs_s=tp,
-                availability=tp / (msgs / base.sim_time),
-                consumed=r.n_consumed,
-                rejected=r.rejected_publishes, **m))
-    return rows, total
+        if p.engine != "vectorized":
+            fails.append(f"ran on engine {p.engine!r}")
+        if fails:
+            raise AssertionError(f"{what}: {'; '.join(fails)}: {p}")
+        rows.append(dict(
+            cell=f"{p.arch}/{p.scenario}", msgs=r.spec.total_messages,
+            consumers=r.spec.n_consumers, tenants=r.spec.tenants,
+            events=r.n_events, sim_time_s=r.sim_time, stretch_s=stretch,
+            consumed=r.n_consumed, rejected=r.rejected_publishes,
+            **dataclasses.asdict(p)))
+    phase = dict(cells=len(points), wall_s=wall,
+                 us_per_event=wall / sum(r.n_events for r in results) * 1e6,
+                 host_reads=reads)
+    return rows, counts, phase
+
+
+def _in_band(got: float, want: float, key: str) -> float:
+    """The relative deviation of ``got`` from ``want``, held to the
+    parity band ``key``."""
+    from repro_torch.core.parity import band
+    dev = abs(got - want) / abs(want)
+    if not dev <= band(key):
+        raise AssertionError(f"{key}: {got} vs {want}: deviation {dev} > "
+                             f"{band(key)}")
+    return dev
+
+
+def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
+    """The experiment layer's drivers on the card, each with the launches
+    counted from 0: (a) ``run_pattern`` on the main path's feedback cell,
+    each seed solo through ``run_experiment`` on the wave program: it
+    launches the pump, runs no cohort cell, and its summaries sit inside
+    the ``device_loop.*`` bands of the main path's stacked lanes; (b)
+    ``run_campaign`` of ``EXP_CAMPAIGN`` in-process, each group read as it
+    finishes: the dts group takes the wave program (pump launches, no
+    cohort run), the mss group the cohort engine (no pump launch, one
+    stacked run), every summary reports the jax engine and consumes
+    every message; (c) ``deployment_feasibility`` at ``EXP_TENANTS`` on
+    the cohort engine (no pump launch), every point feasible with every
+    metric finite.  Returns the rows and the launches."""
+    import math
+    from repro_torch import (
+        CampaignSpec, deployment_feasibility, run_campaign, run_pattern,
+        summarize)
+    from repro_torch.core.torch_engine import TorchStreamSim
+    total: dict = {}
+
+    def add(counts: dict) -> None:
+        for k in _launches():
+            total[k] = total.get(k, 0) + counts[k]
+
+    pattern, arch, n, msgs = EXP_PATTERN
+    res, wall, counts = _counted(lambda: run_pattern(
+        pattern, arch, "dstream", n, total_messages=msgs, n_runs=len(SEEDS),
+        device=dev, **WAVE))
+    main = next(r for r in main_rows if r["cell"] == f"{pattern}/{arch}/c{n}")
+    if (not counts["pump_assign"] or counts["runs"]
+            or len(res) != len(SEEDS)):
+        raise AssertionError(f"run_pattern: {counts}: the seeds did not all "
+                             f"take the wave program")
+    add(counts)
+    sm = [summarize(r) for r in res]
+    devs = []
+    for s, thr, rtt in zip(sm, main["throughput_msgs_s"],
+                           main["median_rtt_s"]):
+        if s.engine != "jax" or s.n_messages != msgs:
+            raise AssertionError(f"run_pattern: {s}")
+        devs.append((_in_band(s.throughput_msgs_s, thr,
+                              "device_loop.all.throughput"),
+                     _in_band(s.median_rtt_s, rtt,
+                              "device_loop.all.median_rtt")))
+    pat_row = dict(cell=f"run_pattern {pattern}/{arch}/c{n}", msgs=msgs,
+                   seeds=len(res), wall_s=wall,
+                   pump_launches=counts["pump_assign"],
+                   throughput_msgs_s=[s.throughput_msgs_s for s in sm],
+                   median_rtt_s=[s.median_rtt_s for s in sm],
+                   dev_vs_stacked=devs)
+
+    groups, t_start = [], time.perf_counter()
+
+    def group_done(msg: str) -> None:
+        """Read and reset the counts as each group finishes (in-process
+        on the card, so they are the group's own)."""
+        if msg.startswith("group "):
+            arch = next(a for a in EXP_CAMPAIGN["architectures"]
+                        if f"'{a}'" in msg)
+            groups.append(dict(arch=arch, end_s=time.perf_counter() - t_start,
+                               **_launches(), **TorchStreamSim.stats))
+            _reset_launches()
+            TorchStreamSim.stats.update(runs=0, host_reads=0, withheld=0)
+
+    camp, _, _ = _counted(lambda: run_campaign(
+        CampaignSpec(**EXP_CAMPAIGN), progress=group_done, device=dev))
+    by_arch = {g["arch"]: g for g in groups}
+    dts, mss = by_arch.get("dts", {}), by_arch.get("mss", {})
+    if (len(groups) != 2 or not dts.get("pump_assign") or dts.get("runs")
+            or mss.get("pump_assign") or mss.get("runs") != 1
+            or camp.n_fallback):
+        raise AssertionError(f"run_campaign: {groups}: dts must take the "
+                             f"wave program and mss the cohort engine")
+    for g in groups:
+        add(g)
+    for s in camp.summaries:
+        if s.engine != "jax" or s.n_messages != EXP_CAMPAIGN["total_messages"]:
+            raise AssertionError(f"run_campaign: {s}")
+    camp_row = dict(cell=f"run_campaign {EXP_CAMPAIGN['name']}",
+                    cells=len(camp.cells), wall_s=camp.wall_s, groups=groups,
+                    averaged=[dict(arch=s.arch, engine=s.engine,
+                                   n_runs=s.n_runs,
+                                   throughput_msgs_s=s.throughput_msgs_s,
+                                   median_rtt_s=s.median_rtt_s)
+                              for s in camp.averaged])
+
+    study, wall, counts = _counted(lambda: deployment_feasibility(
+        tenant_counts=EXP_TENANTS, device=dev))
+    if counts["pump_assign"] or not counts["runs"] or counts["withheld"]:
+        raise AssertionError(f"deployment_feasibility: {counts}")
+    add(counts)
+    curves = {}
+    for a, pts in study.curves.items():
+        for p in pts:
+            vals = (p.tenant_throughput_msgs_s, p.tenant_median_rtt_s,
+                    p.fairness, p.degradation, p.ingress_utilization)
+            if (not p.feasible or p.n_runs != len(SEEDS)
+                    or not all(map(math.isfinite, vals))):
+                raise AssertionError(f"deployment_feasibility: {p}")
+        curves[a] = [dataclasses.asdict(p) for p in pts]
+    feas_row = dict(cell=f"deployment_feasibility tenants {EXP_TENANTS}",
+                    wall_s=wall, cohort_runs=counts["runs"],
+                    host_reads=counts["host_reads"],
+                    crossover_tenants=study.crossover_tenants,
+                    crossover_utilization=study.crossover_utilization,
+                    headline=study.headline(), curves=curves)
+    return dict(run_pattern=pat_row, run_campaign=camp_row,
+                deployment_feasibility=feas_row), total
+
+
+def drive_availability(dev) -> tuple[dict, dict]:
+    """``availability_crossover`` on the card at the reference's defaults
+    but for the outage durations (``AVAIL_DURATIONS``; dts and mss,
+    single-fault ingress outages, one solo cohort cell per failed host,
+    12 cells): every cell ran the cohort engine alone with no
+    pump launch and no confirm left withheld, lost nothing and redelivered
+    every duplicate; every point feasible with a finite throughput.
+    Returns the curves, the crossover and the headline, and the
+    launches."""
+    import math
+    from repro_torch import availability_crossover
+    with _recorded_runs() as calls:
+        study, wall, counts = _counted(
+            lambda: availability_crossover(durations=AVAIL_DURATIONS,
+                                           device=dev))
+    (results,) = calls
+    if (counts.pop("runs") != len(results) or counts.get("pump_assign")
+            or counts.pop("withheld")):
+        raise AssertionError(f"availability: {counts}: the cells did not "
+                             f"each run the cohort engine alone")
+    scores = [_chaos_holds(r, f"availability {r.spec.arch} "
+                              f"{r.spec.params.chaos}") for r in results]
+    for pts in study.curves.values():
+        for p in pts:
+            if not p.feasible or not math.isfinite(p.throughput_msgs_s):
+                raise AssertionError(f"availability: {p}")
+    events = sum(r.n_events for r in results)
+    row = dict(cells=len(results), wall_s=wall, events=events,
+               us_per_event=wall / events * 1e6,
+               host_reads=counts.pop("host_reads"),
+               redelivered=[m["redelivered"] for m in scores],
+               crossover_duration_s=study.crossover_duration_s,
+               headline=study.headline(),
+               curves={a: [dataclasses.asdict(p) for p in pts]
+                       for a, pts in study.curves.items()})
+    return row, counts
+
+
+def _chaos_xcheck_spec(arch: str, scenario: str):
+    """A chaos cross-check cell, at the bench's smoke size."""
+    from repro_torch.core.patterns import chaos_cell
+    t0, t1 = CHAOS_XCHECK_WINDOW
+    return chaos_cell(arch, scenario, total_messages=CHAOS_XCHECK_MSGS,
+                      t0=t0, t1=t1)
 
 
 def chaos_cross_check(dev) -> dict:
@@ -1705,8 +1904,7 @@ def chaos_cross_check(dev) -> dict:
     import numpy as np
     out = []
     for arch, scenario in CHAOS_XCHECK:
-        spec = _chaos_spec(arch, scenario, CHAOS_XCHECK_MSGS,
-                           CHAOS_XCHECK_WINDOW)
+        spec = _chaos_xcheck_spec(arch, scenario)
         (a,), wall_gpu, _ = _cohort_run([spec], dev)
         (b,), wall_cpu, _ = _cohort_run([spec], "cpu")
         for f in ("n_consumed", "n_events", "rejected_publishes",
@@ -1912,8 +2110,8 @@ def main() -> int:
         print("kernel check:", json.dumps(row))
         torch.cuda.empty_cache()
     done("kernel checks")
-    rows, pump_launches = drive_main_path(dev)
-    for r in rows:
+    main_rows, pump_launches = drive_main_path(dev)
+    for r in main_rows:
         print("main path:", json.dumps(r))
     by_path = {"wave": {"pump_assign": pump_launches}}
     done("wave cells")
@@ -1925,10 +2123,18 @@ def main() -> int:
     for r in rows:
         print("flow cells:", json.dumps(r))
     done("flow cells")
-    rows, by_path["chaos"] = drive_chaos(dev)
+    rows, by_path["chaos"], phase = drive_chaos(dev)
     for r in rows:
         print("chaos cells:", json.dumps(r))
+    print("chaos campaign:", json.dumps(phase))
     done("chaos cells")
+    exp, by_path["experiment layer"] = drive_experiment_layer(dev, main_rows)
+    for name, row in exp.items():
+        print(f"experiment layer: {name}:", json.dumps(row))
+    done("experiment layer")
+    avail, by_path["availability"] = drive_availability(dev)
+    print("availability:", json.dumps(avail))
+    done("availability")
     print("cross-check:", json.dumps(cross_check(dev)))
     print("cohort cross-check:", json.dumps(cohort_cross_check(dev)))
     print("flow cross-check:", json.dumps(flow_cross_check(dev)))

@@ -286,6 +286,12 @@ class Cell:
                                              + w * sec)
         c_max = max(max(cost.values(), default=0.0),
                     self._proc_s / max(1, nC))
+        #: per-resource busy seconds per system message and the
+        #: bottleneck, kept for external probes
+        #: (``patterns._ingress_utilization`` reads the shared facility
+        #: ingress off a built cell)
+        self.resource_cost = dict(cost)
+        self.bottleneck_cost = c_max
         if c_max <= 0.0:
             return 0.0, 0.0
         shared = [v for k, v in cost.items()

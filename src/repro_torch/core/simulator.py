@@ -4,10 +4,10 @@ gate every engine applies.
 
 A framework-free copy of the types of the reference package's
 ``simulator`` module.  :class:`SimParams` keeps the fields the wave
-program and the per-cohort engine read, the chaos schedule among them,
-with the reference's names, defaults and validation; the engine
-selector is not part of this package (``run_many`` routes each cell
-itself).
+program and the per-cohort engine read, the chaos schedule and the
+engine selector among them, with the reference's names, defaults and
+validation.  ``repro_torch.core.run`` routes each cell by its engine
+name as the reference does.
 """
 
 from __future__ import annotations
@@ -20,6 +20,18 @@ import numpy as np
 from repro_torch.core.architectures import Architecture
 from repro_torch.core.chaos import ChaosSchedule, coerce_chaos
 from repro_torch.core.workloads import Workload
+
+#: the reference's engine names.  ``"vectorized"`` and ``"jax"`` run on
+#: the port's per-cohort engine, and ``"jax"`` with ``jax_device_loop``
+#: on its wave program; the heap engine is not ported yet
+ENGINE_NAMES = ("heap", "jax", "vectorized")
+
+
+def check_engine(name: str) -> None:
+    """Validate an engine name as the reference's ``get_engine`` does."""
+    if name not in ENGINE_NAMES:
+        raise ValueError(
+            f"unknown engine {name!r}; options: {sorted(ENGINE_NAMES)}")
 
 
 @dataclasses.dataclass
@@ -42,6 +54,7 @@ class SimParams:
     #: Small caps push the run into the reject-publish overflow regime,
     #: which the cohort engine takes (the wave program's gate refuses it).
     queue_max_bytes: Optional[int] = None
+    engine: str = "vectorized"  # "vectorized" (default) | "heap" | "jax"
     #: per-producer messages per publish round; must be a sub-multiple of
     #: the confirm window.  None auto-tunes (8, shrunk to 2 when a shared
     #: DSN-side pipe is saturated and few flows are in play).  The wave
@@ -53,6 +66,15 @@ class SimParams:
     #: client count and shrinks alongside ``vec_round`` under detected
     #: saturation.
     vec_horizon_s: Optional[float] = None
+    #: jax engine: *request* the whole-run wave program (one step per
+    #: message generation instead of the per-cohort event loop; see
+    #: :mod:`repro_torch.core.torch_device_loop`).  True uses it when the
+    #: cell is wave-formulated (work_sharing/feedback, no flow-control
+    #: events reachable) and silently keeps the per-cohort engine
+    #: otherwise; None/False (default) never uses it.  Wave results match
+    #: the cohort engine within the ``device_loop.*`` parity bands (on the
+    #: cells the reference validates them on) rather than bit-for-bit.
+    jax_device_loop: Optional[bool] = None
     #: chaos schedule: topology-epoch failure injection (link, broker and
     #: consumer outages) and backlog-reactive consumer autoscaling; see
     #: :mod:`repro_torch.core.chaos`.  Dicts (JSON campaign specs) are
@@ -61,6 +83,9 @@ class SimParams:
     chaos: Optional[ChaosSchedule] = None
 
     def __post_init__(self) -> None:
+        # resolve the engine name early so a typo fails at construction,
+        # not deep inside a sweep
+        check_engine(self.engine)
         self.chaos = coerce_chaos(self.chaos)
         if self.confirm_window < 2:
             raise ValueError(
@@ -154,6 +179,11 @@ class RunResult:
     @property
     def n_consumed(self) -> int:
         return int(self.consume_times.size)
+
+    def tenant_of_producer(self, producer_idx: np.ndarray) -> np.ndarray:
+        """Map producer indices to tenant indices (contiguous blocks)."""
+        per = max(1, self.spec.n_producers // max(1, self.spec.tenants))
+        return np.asarray(producer_idx, dtype=np.int64) // per
 
 
 class InfeasibleConfiguration(RuntimeError):

@@ -10,7 +10,9 @@ the prefix-scan closed form ``e = H + cummax(a - (H - h))``,
 ``H = cumsum(h)``.  It runs every pattern (work sharing, feedback,
 broadcast, broadcast+gather), with the broker's credit flow and
 reject-publish overflow and the chaos schedules; ``run_many`` sends it
-each cell the wave program's regime gate refuses.
+every cell but those that ask for the wave program (``engine="jax",
+jax_device_loop=True``) and that the wave program's regime gate
+accepts.
 
 **Layout.**  A cohort's clocks are :class:`Times`: every seed-lane on
 the device as a ``(lanes, n)`` float64 tensor, lanes first so each

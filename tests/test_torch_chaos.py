@@ -11,21 +11,23 @@ the CPU.
 * **validation and routing**: chaos cells do not stack; bad link,
   consumer and broker targets raise as the reference does; a chaos cell
   the wave gate would take without its schedule runs the cohort engine,
-  and two seeds of one chaos cell run as two solo runs;
+  and two seeds of one chaos cell run as two solo runs (a cell that asks
+  for the wave program is rewritten to the vectorized engine, as the
+  reference's ``run_many`` rewrites it);
 * **whole runs**: the campaign's 12 chaos cells (tunnel, broker,
   consumer, autoscale on dts, prs-haproxy and mss) at the bench's smoke
   size (512 messages, outage [1, 3) s) through ``run_many`` give the
   reference's clocks at rtol 1e-12 and its counters exactly, with
   nothing lost and every duplicate a redelivery; the three baselines,
-  which ``run_many`` hands the wave program at this size (128 messages a
-  producer), are held on the cohort engine, which takes them at the
-  smoke's full size; a broker fault on a node that homes no queue is the
-  baseline;
+  which the wave gate would take at this size (128 messages a producer),
+  run the cohort engine through ``run_many`` at the default engine; a
+  broker fault on a node that homes no queue is the baseline;
 * **seams**: the broker-target grammar, a link outage on a pool and on a
   pipe, and admission during an outage (the fast path, the walk and a
   non-pilot lane's retry cadence) leave the reference's state;
-* **the smoke's specs**: the 15 full-size cells ``chip_smoke.py`` builds
-  equal the reference's ``patterns.chaos_cell``;
+* **the smoke's specs**: the 15 full-size cells of ``chip_smoke.py``'s
+  chaos campaign and its cross-check cells, built by the port's
+  ``patterns.chaos_cell``, equal the reference's;
 * on the card (``gpu`` marker), the smoke's chaos cross-check cells on
   the GPU against the CPU at the cross-device tolerance, counters exact.
 """
@@ -47,6 +49,7 @@ from repro.core.patterns import CHAOS_SCENARIOS, chaos_cell
 from repro.core.simulator import RunResult as RefResult
 from repro.core.simulator import SimParams as RefParams
 from repro_torch.core import chaos as port_chaos
+from repro_torch.core import patterns as port_pat
 from repro_torch.core import run as port_run
 from repro_torch.core import torch_device_loop as dl
 from repro_torch.core import torch_engine as te
@@ -263,9 +266,11 @@ def test_chaos_cell_the_wave_gate_would_take_runs_the_cohort_engine(
         monkeypatch):
     """Without its schedule the cell is the wave program's; with it, the
     gate refuses it with the reason and ``run_many`` runs it solo on the
-    cohort engine, which equals the reference."""
+    cohort engine, which equals the reference.  The cell asks for the
+    wave program (``engine="jax", jax_device_loop=True``): ``run_many``
+    rewrites it to the vectorized engine, as the reference's does."""
     ref = _cell("dts", "consumer")
-    spec = _port_spec(ref)
+    spec = _port_spec(ref, engine="jax", jax_device_loop=True)
     assert dl._device_loop_ok(WaveCell(_port_spec(ref, chaos=None)))[0]
     ok, why = dl._device_loop_ok(WaveCell(spec))
     assert not ok and "chaos" in why
@@ -277,6 +282,7 @@ def test_chaos_cell_the_wave_gate_would_take_runs_the_cohort_engine(
     runs = TorchStreamSim.stats["runs"]
     got = repro_torch.run_many([spec], device="cpu")
     assert not waves and TorchStreamSim.stats["runs"] == runs + 1
+    assert got[0].spec.params.engine == "vectorized"
     _assert_results_match(got, [_ref_run("dts", "consumer")])
 
 
@@ -330,9 +336,12 @@ def test_campaign_cell_matches_the_reference(arch, scenario):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_baseline_on_the_cohort_engine_matches_the_reference(arch):
     spec = _port_spec(_cell(arch, "baseline"))
-    # at 128 messages a producer the wave gate takes the baseline
+    # at 128 messages a producer the wave gate would take the baseline;
+    # at the default engine it runs the cohort engine
     assert dl._device_loop_ok(WaveCell(spec))[0]
-    got = TorchStreamSim(spec, device="cpu").run()
+    runs = TorchStreamSim.stats["runs"]
+    got = repro_torch.run_many([spec], device="cpu")[0]
+    assert TorchStreamSim.stats["runs"] == runs + 1
     want = _ref_run(arch, "baseline")
     _assert_results_match([got], [want])
     hit = repro_torch.run_many([_port_spec(_cell(arch, "tunnel"))],
@@ -480,20 +489,22 @@ def test_lane_admit_jumps_an_outage_as_the_reference(t_rej):
 
 
 def test_smoke_chaos_specs_are_the_reference_cells():
-    """The 15 cells ``chip_smoke.py`` builds itself (the port has no
-    ``patterns`` module) equal ``patterns.chaos_cell`` at the bench's full
-    size, field for field, and its cross-check cells at the smoke size."""
+    """The 15 full-size cells of the smoke's chaos campaign (the port's
+    ``chaos_campaign`` at its defaults, built by its ``chaos_cell``) equal
+    the reference's ``patterns.chaos_cell`` field for field, and so do
+    the smoke's cross-check cells at the bench's smoke size."""
     sp = importlib.util.spec_from_file_location("chip_smoke",
                                                 ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(sp)
     sp.loader.exec_module(smoke)
-    pairs = [(smoke._chaos_spec(a, s), chaos_cell(a, s))
-             for a in smoke.CHAOS_ARCHS for s in smoke.CHAOS_SCENARIOS]
-    pairs += [(smoke._chaos_spec(a, s, smoke.CHAOS_XCHECK_MSGS,
-                                 smoke.CHAOS_XCHECK_WINDOW), _cell(a, s))
+    names = ("baseline",) + port_pat.CHAOS_SCENARIOS
+    pairs = [(port_pat.chaos_cell(a, s), chaos_cell(a, s))
+             for a in port_pat.DEPLOYMENT_ARCHS for s in names]
+    pairs += [(smoke._chaos_xcheck_spec(a, s), _cell(a, s))
               for a, s in smoke.CHAOS_XCHECK]
     assert len(pairs) == 17
-    assert set(smoke.CHAOS_SCENARIOS) == {"baseline", *CHAOS_SCENARIOS}
+    assert set(names) == {"baseline", *CHAOS_SCENARIOS}
+    assert port_pat.DEPLOYMENT_ARCHS == ARCHS
     for got, want in pairs:
         assert got == _port_spec(want), (want.arch, want.params.chaos)
         assert got.workload.name == want.workload.name == "generic"

@@ -10,9 +10,15 @@ against the reference's NumPy ``VectorizedStreamSim``, on the CPU.
   times, RTTs and publish starts (rtol 1e-12; bit for bit in practice)
   and its counters exactly, on every seed-lane; lane 0 of a stacked run
   is the solo run bit for bit;
-* **routing** — a cell the wave gate accepts still runs the wave program
-  (and its pump), a refused cell runs the cohort engine, a cell with
-  reachable flow-control events runs it too and matches the reference,
+* **routing** — by ``params.engine`` as the reference routes: a default
+  cell, and a ``"jax"`` cell without ``jax_device_loop``, run the cohort
+  engine (``run_many`` and ``run_experiment`` equal the reference's
+  ``run_many`` and ``run_experiment``); a ``"jax"`` cell with the flag
+  that the wave gate accepts runs the wave program (and its pump), a
+  refused one the cohort engine; a jax chaos cell is rewritten to
+  ``"vectorized"``; ``"heap"`` raises ``NotImplementedError`` and an
+  unknown name the reference's ``ValueError``; a cell with reachable
+  flow-control events runs the cohort engine and matches the reference,
   and the default ``device="cuda"`` raises without a GPU;
 * on the card (``gpu`` marker), a Fig 7b cell is held to the reference at
   the cross-device tolerance.
@@ -23,10 +29,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro.core import jax_engine  # noqa: F401  (registers "jax" in ENGINES)
 from repro.core import vectorized as ref_vec
 from repro.core.architectures import ResourceSpec as RefResourceSpec
 from repro.core.simulator import ExperimentSpec as RefSpec
 from repro.core.simulator import SimParams as RefParams
+from repro.core.simulator import run_experiment as ref_run_experiment
 from repro.core.workloads import get_workload as ref_workload
 from repro_torch.core import run as port_run
 from repro_torch.core import torch_engine as te
@@ -307,8 +315,9 @@ def test_stacked_lane_zero_is_the_solo_run(pattern):
 
 
 def test_run_many_routes_wave_cells_to_the_wave_program(monkeypatch):
-    """A cell the wave gate accepts takes the wave program and its pump;
-    a refused cell and a broadcast cell take the cohort engine."""
+    """A ``"jax"`` cell with ``jax_device_loop`` that the wave gate accepts
+    takes the wave program and its pump; a refused cell and a broadcast
+    cell with the same flag take the cohort engine."""
     pumped = []
     real = port_run.dl.run_wave_cells
 
@@ -321,17 +330,114 @@ def test_run_many_routes_wave_cells_to_the_wave_program(monkeypatch):
         port_run.dl, "pump_assign",
         lambda *a: (pumped.append("pump"), pump_assign(*a))[1])
     runs = TorchStreamSim.stats["runs"]
-    _, wave = _pair("work_sharing", "dts", 4, 2, 256)
+    _, wave = _pair("work_sharing", "dts", 4, 2, 256, **WAVE)
     repro_torch.run_many([wave], device="cpu")
     assert len(pumped) > 1 and "pump" in pumped
     assert TorchStreamSim.stats["runs"] == runs
     pumped.clear()
-    _, refused = _pair("feedback", "mss", 4, 4, 256, confirm_window=32)
-    _, bcast = _pair("broadcast", "dts", 1, 2, 32, workload="generic")
+    _, refused = _pair("feedback", "mss", 4, 4, 256, confirm_window=32,
+                       **WAVE)
+    _, bcast = _pair("broadcast", "dts", 1, 2, 32, workload="generic",
+                     **WAVE)
     out = repro_torch.run_many([refused, bcast], device="cpu")
     assert "pump" not in pumped and not [c for c in pumped if c != "pump"]
     assert TorchStreamSim.stats["runs"] == runs + 2
     assert [r.n_consumed for r in out] == [256, 64]
+
+
+#: the reference's opt-in to the whole-run wave program
+WAVE = dict(engine="jax", jax_device_loop=True)
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """Counts the cells ``run_many`` hands the wave program and the cohort
+    engine's runs."""
+    waves = []
+    real = port_run.dl.run_wave_cells
+    monkeypatch.setattr(port_run.dl, "run_wave_cells",
+                        lambda cells, device: (waves.extend(cells),
+                                               real(cells, device))[1])
+    runs = TorchStreamSim.stats["runs"]
+    return lambda: (len(waves), TorchStreamSim.stats["runs"] - runs)
+
+
+ROUTES = {
+    "default": (dict(), (0, 1), "vectorized"),
+    "jax without the flag": (dict(engine="jax"), (0, 1), "jax"),
+    "jax with the flag": (WAVE, (1, 0), "jax"),
+    "flag on the vectorized engine": (dict(jax_device_loop=True), (0, 1),
+                                      "vectorized"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_run_many_routes_by_engine_as_the_reference(case, routes):
+    """The wave program is opt-in, as in the reference: only ``"jax"``
+    with ``jax_device_loop`` (on a cell the gate accepts) takes it; the
+    rest run the cohort engine and equal the reference's ``run_many`` at
+    rtol 1e-12 (a wave cell the gate accepts: 64 messages a producer)."""
+    params, want_routes, engine = ROUTES[case]
+    pairs = [_pair("work_sharing", "dts", 4, 4, 256, seed=s, **params)
+             for s in SEEDS]
+    got = repro_torch.run_many([p for _, p in pairs], device="cpu")
+    assert routes() == want_routes
+    assert {r.spec.params.engine for r in got} == {engine}
+    assert {repro_torch.summarize(r).engine for r in got} == {engine}
+    if want_routes == (0, 1):
+        _assert_results_match(got, ref_vec.run_many([
+            _pair("work_sharing", "dts", 4, 4, 256, seed=s)[0]
+            for s in SEEDS]))
+
+
+def test_run_experiment_equals_the_reference_on_a_default_spec(routes):
+    ref, port = _pair("feedback", "prs-haproxy", 3, 3, 300, seed=4)
+    got = repro_torch.run_experiment(port, device="cpu")
+    assert routes() == (0, 1)
+    _assert_results_match([got], [ref_run_experiment(ref)])
+    ref, port = _pair("work_sharing", "prs-stunnel", 32, 32, 64)
+    bad, want = (repro_torch.run_experiment(port, device="cpu"),
+                 ref_run_experiment(ref))
+    assert not bad.feasible and bad.infeasible_reason == \
+        want.infeasible_reason
+
+
+def test_jax_chaos_cell_is_rewritten_to_vectorized(routes):
+    """``run_many`` rewrites a jax chaos cell to the vectorized engine, as
+    the reference's does; ``run_experiment`` refuses it, as the
+    reference's jax engine does."""
+    sched = {"injections": [{"kind": "consumer", "target": "c1",
+                             "t0": 0.05, "t1": 0.1}]}
+    ref, port = _pair("work_sharing", "dts", 2, 2, 256, chaos=sched, **WAVE)
+    got = repro_torch.run_many([port], device="cpu")
+    assert routes() == (0, 1)
+    assert got[0].spec.params.engine == "vectorized"
+    assert port.params.engine == "jax"
+    want = ref_vec.run_many([_pair("work_sharing", "dts", 2, 2, 256,
+                                   chaos=sched)[0]])
+    _assert_results_match(got, want)
+    msgs = []
+    for run in (lambda: ref_run_experiment(ref),
+                lambda: repro_torch.run_experiment(port, device="cpu")):
+        with pytest.raises(ValueError) as e:
+            run()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_heap_engine_is_not_ported_and_unknown_engines_raise():
+    _, heap = _pair("work_sharing", "dts", 2, 2, 64, engine="heap")
+    for run in (repro_torch.run_many, lambda s, device: (
+            repro_torch.run_experiment(s[0], device=device))):
+        with pytest.raises(NotImplementedError, match="heap engine"):
+            run([heap], device="cpu")
+    msgs = []
+    for make in (RefParams, repro_torch.SimParams):
+        with pytest.raises(ValueError) as e:
+            make(engine="warp")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] == (
+        "unknown engine 'warp'; options: ['heap', 'jax', 'vectorized']")
 
 
 def test_flow_events_cell_raises_with_the_reason():

@@ -8,14 +8,17 @@ entry point ``run_many``, against the reference's NumPy oracle.
   ``static_to_torch``, the port's program emits the reference NumPy
   backend's per-step trace at rtol = atol = 1e-12, over the drawn
   shapes, seeds and jitter of the reference's own backend property;
-* **whole runs** — ``run_many(..., device="cpu")`` results equal the
-  reference's build -> NumPy trace -> assemble at 1e-12, and throughput
-  sits inside the ``device_loop`` parity band of the vectorized engine;
+* **whole runs** — ``run_many(..., device="cpu")`` on cells that opt in
+  to the wave program (``engine="jax", jax_device_loop=True``, as in the
+  reference) equals the reference's build -> NumPy trace -> assemble at
+  1e-12, and throughput sits inside the ``device_loop`` parity band of
+  the vectorized engine;
 * **batching** — cell-axis pads are inert and lane 0 of a stacked run is
   the solo run, bitwise;
 * **regime gate and device default** — the same ``(ok, why)`` as the
-  reference, the cohort engine for a gated cell (flow-control cells
-  included), and a raise for ``device="cuda"`` without a GPU.
+  reference, the cohort engine for a gated cell that opted in
+  (flow-control cells included), and a raise for ``device="cuda"``
+  without a GPU.
 
 Cells stay small: the oracle's segmented max scan is a Python loop.
 """
@@ -31,7 +34,6 @@ from _hypothesis_compat import given, settings, st
 import repro_torch
 from repro.core import jax_device_loop as jdl
 from repro.core.metrics import summarize as ref_summarize
-from repro.core.parity import band
 from repro.core.simulator import ExperimentSpec as RefSpec
 from repro.core.simulator import SimParams as RefParams
 from repro.core.vectorized import VectorizedStreamSim
@@ -39,13 +41,19 @@ from repro.core.vectorized import run_many as ref_run_many
 from repro.core.workloads import get_workload as ref_workload
 from repro_torch.core import torch_device_loop as tdl
 from repro_torch.core.cell import WaveCell
+from repro_torch.core.parity import band
+
+#: the port's spec opts in to the wave program as the reference's would
+WAVE = dict(engine="jax", jax_device_loop=True)
 
 
 def _pair(pattern="feedback", arch="dts", msgs=256, npr=4, nc=2, seed=0,
-          tenants=1, isolation="shared", **params):
+          tenants=1, isolation="shared", wave=False, **params):
     """The same cell in both packages.  ``confirm_window=32`` puts the
     default feedback cell inside the wave model's validated corridor
-    (2G < W < msgs/producer <= 2W), as the reference's tests do."""
+    (2G < W < msgs/producer <= 2W), as the reference's tests do.
+    ``wave`` opts the port's spec in to the wave program (the reference's
+    stays on its vectorized engine, which runs here)."""
     params.setdefault("confirm_window", 32)
     kw = dict(pattern=pattern, arch=arch, n_producers=npr, n_consumers=nc,
               total_messages=msgs, tenants=tenants,
@@ -54,7 +62,8 @@ def _pair(pattern="feedback", arch="dts", msgs=256, npr=4, nc=2, seed=0,
                   params=RefParams(seed=seed, **params), **kw)
     port = repro_torch.ExperimentSpec(
         workload=repro_torch.get_workload("dstream"),
-        params=repro_torch.SimParams(seed=seed, **params), **kw)
+        params=repro_torch.SimParams(seed=seed, **params,
+                                     **(WAVE if wave else {})), **kw)
     return ref, port
 
 
@@ -154,7 +163,7 @@ def test_run_many_matches_reference_pipeline(cell):
     """``run_many`` on the CPU, three stacked seed-lanes, against the
     reference's build_static -> NumPy trace -> _assemble."""
     seeds = (0, 1000, 2000)
-    pairs = [_pair(seed=s, jitter=0.02, **cell) for s in seeds]
+    pairs = [_pair(seed=s, jitter=0.02, wave=True, **cell) for s in seeds]
     got = repro_torch.run_many([p for _, p in pairs], device="cpu")
     sim = VectorizedStreamSim(pairs[0][0], stack_seeds=list(seeds))
     ws = jdl.build_static(sim)
@@ -182,7 +191,7 @@ def test_run_many_matches_reference_pipeline(cell):
 def test_throughput_inside_device_loop_band_vs_vectorized(pattern):
     """End to end, the port sits inside the reference's wave-program
     parity bands against the vectorized cohort engine."""
-    ref, port = _pair(pattern=pattern)
+    ref, port = _pair(pattern=pattern, wave=True)
     v = ref_run_many([ref])[0]
     t = repro_torch.run_many([port], device="cpu")[0]
     sv, st_ = ref_summarize(v), repro_torch.summarize(t)
@@ -213,8 +222,10 @@ def test_cell_axis_pads_are_inert():
 
 def test_stacked_lane_zero_is_the_solo_run():
     stacked = repro_torch.run_many(
-        [_pair(seed=s, jitter=0.02)[1] for s in (0, 1000, 2000)], device="cpu")
-    solo = repro_torch.run_many([_pair(seed=0, jitter=0.02)[1]], device="cpu")[0]
+        [_pair(seed=s, jitter=0.02, wave=True)[1] for s in (0, 1000, 2000)],
+        device="cpu")
+    solo = repro_torch.run_many([_pair(seed=0, jitter=0.02, wave=True)[1]],
+                                device="cpu")[0]
     np.testing.assert_array_equal(stacked[0].consume_times, solo.consume_times)
     np.testing.assert_array_equal(stacked[0].rtts, solo.rtts)
 
@@ -245,7 +256,7 @@ def test_run_many_raises_on_a_gated_cell():
     assert "flow-control" in tdl._device_loop_ok(WaveCell(flow))[1]
     for kw in (dict(arch="mss"), dict(pattern="broadcast_gather", npr=1),
                dict(queue_max_bytes=64 * 1024)):
-        pairs = [_pair(seed=s, jitter=0.02, **kw) for s in seeds]
+        pairs = [_pair(seed=s, jitter=0.02, wave=True, **kw) for s in seeds]
         got = repro_torch.run_many([p for _, p in pairs], device="cpu")
         want = VectorizedStreamSim(pairs[0][0],
                                    stack_seeds=list(seeds)).run_stacked()
@@ -260,7 +271,7 @@ def test_run_many_raises_on_a_gated_cell():
 
 def test_run_many_reports_infeasible_cells():
     _, port = _pair(pattern="work_sharing", arch="prs-stunnel", npr=32, nc=32,
-                    msgs=1024)
+                    msgs=1024, wave=True)
     r = repro_torch.run_many([port], device="cpu")[0]
     assert not r.feasible and "connection limit" in r.infeasible_reason
 
