@@ -218,11 +218,6 @@ EXP_CAMPAIGN = dict(name="fig6 c64", patterns=("feedback",),
                     consumers=(64,), n_runs=len(SEEDS), total_messages=16384,
                     params={"engine": "jax", "jax_device_loop": True})
 EXP_TENANTS = (1, 8, 64)
-#: the availability crossover's outage durations: three of the reference's
-#: five (5, 20, 40, 80, 120 s), so that the smoke stays inside its time
-#: limit; 40 and 80 s bracket the crossover, so its duration is the one
-#: the five give
-AVAIL_DURATIONS = (5.0, 40.0, 80.0)
 #: the cells that opt in to the wave program, as the reference's do
 WAVE = dict(engine="jax", jax_device_loop=True)
 
@@ -1637,7 +1632,11 @@ def drive_flow(dev) -> tuple[list, dict]:
 def _recorded_runs():
     """Record the results of every ``run_many`` call the experiment
     layer's drivers make, so that the smoke holds each cell without
-    running it twice; yields the list of each call's results."""
+    running it twice (the drivers return scores, not runs); yields the
+    list of each call's results.  It wraps the name ``run_many`` in
+    ``patterns``, and each phase unpacks exactly the calls it expects,
+    so a driver that stops calling that name fails the phase instead of
+    leaving its cells unheld."""
     from repro_torch.core import patterns
     calls, real = [], patterns.run_many
 
@@ -1731,14 +1730,12 @@ def drive_chaos(dev) -> tuple[list, dict, dict]:
     return rows, counts, phase
 
 
-def _in_band(got: float, want: float, key: str) -> float:
-    """The relative deviation of ``got`` from ``want``, held to the
-    parity band ``key``."""
-    from repro_torch.core.parity import band
+def _held(got: float, want: float, tol: float, what: str) -> float:
+    """The relative deviation of ``got`` from ``want``, held to ``tol``."""
     dev = abs(got - want) / abs(want)
-    if not dev <= band(key):
-        raise AssertionError(f"{key}: {got} vs {want}: deviation {dev} > "
-                             f"{band(key)}")
+    if not dev <= tol:
+        raise AssertionError(f"{what}: {got} vs {want}: deviation {dev} > "
+                             f"{tol}")
     return dev
 
 
@@ -1746,20 +1743,21 @@ def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
     """The experiment layer's drivers on the card, each with the launches
     counted from 0: (a) ``run_pattern`` on the main path's feedback cell,
     each seed solo through ``run_experiment`` on the wave program: it
-    launches the pump, runs no cohort cell, and its summaries sit inside
-    the ``device_loop.*`` bands of the main path's stacked lanes; (b)
-    ``run_campaign`` of ``EXP_CAMPAIGN`` in-process, each group read as it
-    finishes: the dts group takes the wave program (pump launches, no
-    cohort run), the mss group the cohort engine (no pump launch, one
-    stacked run), every summary reports the jax engine and consumes
-    every message; (c) ``deployment_feasibility`` at ``EXP_TENANTS`` on
-    the cohort engine (no pump launch), every point feasible with every
-    metric finite.  Returns the rows and the launches."""
+    launches the pump, runs no cohort cell, and its summaries equal the
+    main path's stacked lanes of the same program, seed 0 (the pilot
+    lane, the solo run) at ``XDEV_RTOL`` and the other seeds inside the
+    ``stacked.lanes.summary`` band; (b) ``run_campaign`` of
+    ``EXP_CAMPAIGN`` on dts and on mss, one campaign each: dts takes the
+    wave program (pump launches, no cohort run), mss the cohort engine
+    (no pump launch, one stacked run), every summary reports the jax
+    engine and consumes every message; (c) ``deployment_feasibility`` at
+    ``EXP_TENANTS`` on the cohort engine (no pump launch), every point
+    feasible with every metric finite.  Returns the rows and the launches."""
     import math
     from repro_torch import (
         CampaignSpec, deployment_feasibility, run_campaign, run_pattern,
         summarize)
-    from repro_torch.core.torch_engine import TorchStreamSim
+    from repro_torch.core.parity import band
     total: dict = {}
 
     def add(counts: dict) -> None:
@@ -1778,14 +1776,16 @@ def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
     add(counts)
     sm = [summarize(r) for r in res]
     devs = []
-    for s, thr, rtt in zip(sm, main["throughput_msgs_s"],
-                           main["median_rtt_s"]):
+    for lane, (s, thr, rtt) in enumerate(zip(
+            sm, main["throughput_msgs_s"], main["median_rtt_s"])):
         if s.engine != "jax" or s.n_messages != msgs:
             raise AssertionError(f"run_pattern: {s}")
-        devs.append((_in_band(s.throughput_msgs_s, thr,
-                              "device_loop.all.throughput"),
-                     _in_band(s.median_rtt_s, rtt,
-                              "device_loop.all.median_rtt")))
+        tol = XDEV_RTOL if lane == 0 else band("stacked.lanes.summary")
+        devs.append(tuple(
+            _held(got, want, tol, f"run_pattern seed {SEEDS[lane]} {what} "
+                                  f"vs the stacked lane")
+            for got, want, what in ((s.throughput_msgs_s, thr, "throughput"),
+                                    (s.median_rtt_s, rtt, "median RTT"))))
     pat_row = dict(cell=f"run_pattern {pattern}/{arch}/c{n}", msgs=msgs,
                    seeds=len(res), wall_s=wall,
                    pump_launches=counts["pump_assign"],
@@ -1793,40 +1793,30 @@ def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
                    median_rtt_s=[s.median_rtt_s for s in sm],
                    dev_vs_stacked=devs)
 
-    groups, t_start = [], time.perf_counter()
-
-    def group_done(msg: str) -> None:
-        """Read and reset the counts as each group finishes (in-process
-        on the card, so they are the group's own)."""
-        if msg.startswith("group "):
-            arch = next(a for a in EXP_CAMPAIGN["architectures"]
-                        if f"'{a}'" in msg)
-            groups.append(dict(arch=arch, end_s=time.perf_counter() - t_start,
-                               **_launches(), **TorchStreamSim.stats))
-            _reset_launches()
-            TorchStreamSim.stats.update(runs=0, host_reads=0, withheld=0)
-
-    camp, _, _ = _counted(lambda: run_campaign(
-        CampaignSpec(**EXP_CAMPAIGN), progress=group_done, device=dev))
-    by_arch = {g["arch"]: g for g in groups}
-    dts, mss = by_arch.get("dts", {}), by_arch.get("mss", {})
-    if (len(groups) != 2 or not dts.get("pump_assign") or dts.get("runs")
-            or mss.get("pump_assign") or mss.get("runs") != 1
-            or camp.n_fallback):
+    groups, camps = [], []
+    for one in EXP_CAMPAIGN["architectures"]:
+        grid = CampaignSpec(**dict(EXP_CAMPAIGN, architectures=(one,)))
+        camp, _, counts = _counted(lambda: run_campaign(grid, device=dev))
+        groups.append(dict(arch=one, wall_s=camp.wall_s, **counts))
+        camps.append(camp)
+        add(counts)
+        for s in camp.summaries:
+            if (s.engine != "jax"
+                    or s.n_messages != EXP_CAMPAIGN["total_messages"]):
+                raise AssertionError(f"run_campaign: {s}")
+    dts, mss = groups
+    if (not dts["pump_assign"] or dts["runs"] or mss["pump_assign"]
+            or mss["runs"] != 1 or any(c.n_fallback for c in camps)):
         raise AssertionError(f"run_campaign: {groups}: dts must take the "
                              f"wave program and mss the cohort engine")
-    for g in groups:
-        add(g)
-    for s in camp.summaries:
-        if s.engine != "jax" or s.n_messages != EXP_CAMPAIGN["total_messages"]:
-            raise AssertionError(f"run_campaign: {s}")
     camp_row = dict(cell=f"run_campaign {EXP_CAMPAIGN['name']}",
-                    cells=len(camp.cells), wall_s=camp.wall_s, groups=groups,
+                    cells=sum(len(c.cells) for c in camps),
+                    wall_s=sum(c.wall_s for c in camps), groups=groups,
                     averaged=[dict(arch=s.arch, engine=s.engine,
                                    n_runs=s.n_runs,
                                    throughput_msgs_s=s.throughput_msgs_s,
                                    median_rtt_s=s.median_rtt_s)
-                              for s in camp.averaged])
+                              for c in camps for s in c.averaged])
 
     study, wall, counts = _counted(lambda: deployment_feasibility(
         tenant_counts=EXP_TENANTS, device=dev))
@@ -1854,19 +1844,18 @@ def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
 
 def drive_availability(dev) -> tuple[dict, dict]:
     """``availability_crossover`` on the card at the reference's defaults
-    but for the outage durations (``AVAIL_DURATIONS``; dts and mss,
-    single-fault ingress outages, one solo cohort cell per failed host,
-    12 cells): every cell ran the cohort engine alone with no
-    pump launch and no confirm left withheld, lost nothing and redelivered
-    every duplicate; every point feasible with a finite throughput.
+    (dts and mss, single-fault ingress outages of 5, 20, 40, 80 and
+    120 s, one solo cohort cell per failed host, 20 cells): every cell
+    ran the cohort engine alone with no pump launch and no confirm left
+    withheld, lost nothing and redelivered every duplicate; every point
+    feasible with a finite throughput.
     Returns the curves, the crossover and the headline, and the
     launches."""
     import math
     from repro_torch import availability_crossover
     with _recorded_runs() as calls:
         study, wall, counts = _counted(
-            lambda: availability_crossover(durations=AVAIL_DURATIONS,
-                                           device=dev))
+            lambda: availability_crossover(device=dev))
     (results,) = calls
     if (counts.pop("runs") != len(results) or counts.get("pump_assign")
             or counts.pop("withheld")):

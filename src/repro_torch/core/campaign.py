@@ -17,10 +17,10 @@ cell-at-a-time orchestration.  This module executes whole grids as
   :func:`repro_torch.core.run.run_many`, which stacks the seeds as
   cohort lanes of **one** batched engine run (a 3-seed cell costs barely
   more than one run);
-* heterogeneous groups fan out across a small process pool
-  (``workers``), largest first, on the CPU; on a CUDA device they run
-  in-process, one after another (a worker process cannot share the
-  parent's CUDA context);
+* the groups run in-process, largest first, one after another (the
+  reference fans them out over a process pool; a worker process cannot
+  share the parent's CUDA context, and one card gains nothing from
+  several processes);
 * every finished group is written through a fingerprinted cache (an
   object with a ``data`` dict and a ``save()`` method), so an
   interrupted campaign resumes where it stopped and
@@ -37,7 +37,7 @@ Quick start::
     spec = CampaignSpec(name="fig6-mini", patterns=("feedback",),
                         architectures=("dts", "mss"), workloads=("dstream",),
                         consumers=(4, 8), n_runs=3, total_messages=2048)
-    res = run_campaign(spec, workers=0, device="cuda")  # 12 cells, batched
+    res = run_campaign(spec, device="cuda")  # 12 cells, batched
     for s in res.averaged:
         print(s.arch, s.n_consumers, round(s.throughput_msgs_s, 1))
 """
@@ -47,8 +47,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import multiprocessing
-import os
 import time
 from typing import Any, Callable, Optional, Sequence
 
@@ -290,8 +288,8 @@ def cell_key(cell: CellSpec) -> str:
 
 def _run_group(cells: Sequence[CellSpec],
                device: "torch.device | str") -> list[dict]:
-    """Execute one structurally-identical group (worker-side on the
-    CPU): the seeds stack into one batched engine run via ``run_many``."""
+    """Execute one structurally-identical group: the seeds stack into
+    one batched engine run via ``run_many``."""
     results = run_many([c.experiment() for c in cells], device=device)
     return [dataclasses.asdict(summarize(r)) for r in results]
 
@@ -333,20 +331,18 @@ def run_campaign(spec: CampaignSpec, *, cache: Optional[Any] = None,
 
     ``cache`` is a cache object (a ``data`` dict of ``key -> dict`` plus
     a ``save()`` method): each freshly-computed group is written through
-    and saved as it completes, so an interrupted campaign resumes.  The cache unit is
-    the *group*: hits are only served when every cell of a group is
-    present, otherwise the whole group re-runs (and overwrites any
-    partial entries) — a group's seeds always stack behind the same
-    pilot lane, so a cached cell's numbers never depend on which cells
-    happened to be computed before an interruption.  ``workers`` bounds
-    the process fan-out across cell groups (``0``/``1`` = in-process;
-    ``None`` = one per CPU, capped by the group count) on the CPU, in
-    freshly spawned worker processes.  On a CUDA device every group runs
-    in-process, one after another, whatever ``workers`` says: a forked
-    child of a process that holds a CUDA context cannot use the card,
-    and one card gains nothing from several processes.  Seeds within a
-    group never fan out — they run stacked in one engine loop, which is
-    where the batching win comes from."""
+    and saved as it completes, so an interrupted campaign resumes.  The
+    cache unit is the *group*: hits are only served when every cell of
+    a group is present, otherwise the whole group re-runs (and
+    overwrites any partial entries) — a group's seeds always stack
+    behind the same pilot lane, so a cached cell's numbers never depend
+    on which cells happened to be computed before an interruption.  Every group runs
+    in-process, one after another; ``workers``, the reference's bound on
+    its process fan-out, is accepted for call compatibility and ignored
+    (a forked child of a process that holds a CUDA context cannot use
+    the card, and one card gains nothing from several processes).  Seeds
+    within a group never fan out — they run stacked in one engine loop,
+    which is where the batching win comes from."""
     device = resolve_device(device)
     # wall_s is campaign telemetry (how long the run took), reported
     # alongside results, never fed into them
@@ -383,36 +379,19 @@ def run_campaign(spec: CampaignSpec, *, cache: Optional[Any] = None,
     say(f"{len(cells)} cells: {n_cached} cached, "
         f"{len(todo)} group(s) to run")
 
-    # largest groups first: better packing across workers
+    # largest groups first, as the reference orders its fan-out
     groups = sorted(todo.values(),
                     key=lambda idxs: -cells[idxs[0]].total_messages
                     * len(idxs) * cells[idxs[0]].n_consumers)
-
-    def record(idxs: list[int], dicts: list[dict]) -> None:
+    for idxs in groups:
+        dicts = _run_group([cells[i] for i in idxs], device)
         for i, d in zip(idxs, dicts):
             summaries[i] = Summary(**d)
             if cache is not None:
                 cache.data[cell_key(cells[i])] = d
         if cache is not None:
             cache.save()         # one write per finished group
-
-    if workers is None:
-        workers = min(len(groups), os.cpu_count() or 1)
-    if workers <= 1 or len(groups) <= 1 or device.type != "cpu":
-        for idxs in groups:
-            record(idxs, _run_group([cells[i] for i in idxs], device))
-            say(f"group {cells[idxs[0]].group_key()[:4]} done")
-    else:
-        from concurrent.futures import ProcessPoolExecutor, as_completed
-        with ProcessPoolExecutor(
-                max_workers=workers,
-                mp_context=multiprocessing.get_context("spawn")) as ex:
-            futs = {ex.submit(_run_group, [cells[i] for i in idxs],
-                              "cpu"): idxs
-                    for idxs in groups}
-            for fut in as_completed(futs):
-                record(futs[fut], fut.result())
-                say(f"group {cells[futs[fut][0]].group_key()[:4]} done")
+        say(f"group {cells[idxs[0]].group_key()[:4]} done")
 
     ordered = [summaries[i] for i in range(len(cells))]
     n_fallback = sum(

@@ -9,14 +9,15 @@ reference's ``repro.core.campaign``, on the CPU.
   sends a jax chaos cell to the vectorized engine;
 * **the runner**: ``run_campaign`` on the reference docstring's 12-cell
   grid (at 512 messages) gives the reference's summaries at rtol 1e-12,
-  serves all of them from its cache on a second run, fans out over
-  spawned CPU workers with the same numbers, and counts and warns about
-  jax chaos cells that fell back;
+  serves all of them from its cache on a second run, runs every group
+  in-process whatever ``workers`` says, and counts and warns about jax
+  chaos cells that fell back;
 * on the card (``gpu`` marker): ``chaos_campaign`` and
   ``availability_crossover`` at full size against the reference at
   1e-9 with counters exact, and a campaign on the card in-process.
 """
 
+import ast
 import dataclasses
 import warnings
 
@@ -159,13 +160,31 @@ def test_run_campaign_matches_the_reference_and_caches():
     _same_list(again.summaries, got.summaries, rtol=0)
 
 
-def test_run_campaign_fans_out_over_spawned_cpu_workers():
-    grid = dict(MINI, consumers=(2,), n_runs=2, total_messages=128)
-    one = port_camp.run_campaign(port_camp.CampaignSpec(**grid), workers=0,
-                                 device="cpu")
-    two = port_camp.run_campaign(port_camp.CampaignSpec(**grid), workers=2,
-                                 device="cpu")
-    _same_list(two.summaries, one.summaries, rtol=0)
+def test_run_campaign_runs_every_group_in_process_whatever_workers_says(
+        monkeypatch):
+    """``workers`` is accepted for the reference's signature and ignored:
+    no process pool is made, and every group reports its end in-process,
+    largest first, with the numbers of ``workers=0``."""
+    import concurrent.futures
+
+    def no_pool(*a, **kw):
+        raise AssertionError("run_campaign made a process pool")
+
+    monkeypatch.setattr(concurrent.futures, "ProcessPoolExecutor", no_pool)
+    grid = dict(MINI, consumers=(2, 4), n_runs=2, total_messages=128)
+    runs = []
+    for workers in (0, 2, None):
+        said = []
+        runs.append((port_camp.run_campaign(
+            port_camp.CampaignSpec(**grid), workers=workers,
+            progress=said.append, device="cpu"), said))
+    (one, said), *rest = runs
+    done = [m for m in said if m.startswith("group ")]
+    assert [ast.literal_eval(m[len("group "):-len(" done")])[3]
+            for m in done] == [4, 4, 2, 2]
+    for other, other_said in rest:
+        assert other_said == said
+        _same_list(other.summaries, one.summaries, rtol=0)
 
 
 def test_run_campaign_counts_the_jax_fallback_as_the_reference():
