@@ -22,7 +22,7 @@ dev = torch.device("cuda")
 print(sys.version.split()[0], torch.__version__, torch.version.cuda,
       torch.cuda.get_device_name(0), flush=True)
 t0 = time.perf_counter()
-rows, counts, phase = cs.drive_chaos(dev)
+rows, counts, phase, _ = cs.drive_chaos(dev)
 for r in rows:
     print("chaos cells:", json.dumps(r), flush=True)
 print("chaos campaign:", json.dumps(phase), flush=True)

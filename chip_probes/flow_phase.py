@@ -25,7 +25,7 @@ print(sys.version.split()[0], torch.__version__, torch.version.cuda,
       torch.cuda.get_device_name(0), flush=True)
 t0 = time.perf_counter()
 cs.COHORT_REPEATS = 1
-rows, counts = cs.drive_flow(dev)
+rows, counts, _ = cs.drive_flow(dev)
 for r in rows:
     print("flow cells:", json.dumps(r), flush=True)
 print("counts", counts, "phase s", time.perf_counter() - t0, flush=True)

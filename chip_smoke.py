@@ -36,7 +36,8 @@ tensor-core kernel):
 * the cohort path — ``run_many`` on the cells the wave gate refuses and
   on the broadcast patterns, which go to the per-cohort engine: Fig 7a
   (broadcast, 64 consumers) and Fig 7b (broadcast+gather, 32 consumers)
-  of the generic workload at 384 messages on dts, prs-haproxy and mss,
+  of the generic workload at 64 messages (``BROADCAST_MSGS``) on dts,
+  prs-haproxy and mss,
   Fig 4's dstream at 4 consumers x 4096 messages on dts and Fig 6's
   dstream feedback at 64 x 3072 on mss, three seed-lanes each, warm,
   timed ``COHORT_REPEATS`` times, every lane consuming every message with
@@ -80,6 +81,22 @@ tensor-core kernel):
   its five (single-fault ingress outages on dts and mss, 12 solo cohort
   cells), nothing lost in any cell, its curves, crossover duration and
   headline printed;
+* the heap parity phase — the card's per-cohort engine held to the
+  port's heap engine (``engine="heap"``, the one-event-per-hop model the
+  reference's parity bands are defined against, which runs on the
+  host), one line per part with the heap engine's wall, events and
+  events a second on the host CPU beside the card engine's wall: (a)
+  the reference's Fig 4/6/7 parity grid (work sharing and feedback of
+  dstream at 4096 messages, broadcast+gather of generic at 400, on dts,
+  prs-haproxy and mss at 8 consumers, seed 0, jitter 0) through
+  ``run_pattern`` on each engine, within the reference's bands and
+  with equal message counts; (b) the chaos phase's 15 card runs against
+  heap runs of the same specs, by ``tests/test_chaos.py``'s checks; (c)
+  the flow parity cell's three card lanes against a solo heap run of
+  each seed, within the ``stacked_overflow`` bands with both counters
+  non-zero; (d) ``examples/quickstart.py`` through the port, its
+  deployment lines and its work-sharing table on both engines equal to
+  the reference's.  No part launches a kernel;
 * serving granite-8b at full width and depth (36 layers, random bf16
   weights from a seed), with ``attention_impl="pallas"``: the prefill
   step on 4 requests x 4096 prompt tokens (flash attention once per
@@ -160,14 +177,18 @@ COHORT_REPEATS = 1
 #: ``bench_fig4_work_sharing.py``) and Fig 6's dstream on mss, which the
 #: gate refuses (``bench_fig6_feedback_rtt.py``).  Broadcast cells have
 #: one producer, the others one per consumer (as the reference's
-#: ``pattern_spec``).
+#: ``pattern_spec``).  The broadcast cells run ``BROADCAST_MSGS``
+#: messages, cut in depth from the 384 they ran before the heap parity
+#: phase, to keep the smoke's phases under 1000 s; their width (64 and
+#: 32 consumers, 4 MiB messages) is uncut
+BROADCAST_MSGS = 64
 COHORT_CELLS = (
-    ("broadcast", "dts", "generic", 64, 384),
-    ("broadcast", "prs-haproxy", "generic", 64, 384),
-    ("broadcast", "mss", "generic", 64, 384),
-    ("broadcast_gather", "dts", "generic", 32, 384),
-    ("broadcast_gather", "prs-haproxy", "generic", 32, 384),
-    ("broadcast_gather", "mss", "generic", 32, 384),
+    ("broadcast", "dts", "generic", 64, BROADCAST_MSGS),
+    ("broadcast", "prs-haproxy", "generic", 64, BROADCAST_MSGS),
+    ("broadcast", "mss", "generic", 64, BROADCAST_MSGS),
+    ("broadcast_gather", "dts", "generic", 32, BROADCAST_MSGS),
+    ("broadcast_gather", "prs-haproxy", "generic", 32, BROADCAST_MSGS),
+    ("broadcast_gather", "mss", "generic", 32, BROADCAST_MSGS),
     ("work_sharing", "dts", "dstream", 4, 4096),
     ("feedback", "mss", "dstream", 64, 3072),
 )
@@ -220,6 +241,47 @@ EXP_CAMPAIGN = dict(name="fig6 c64", patterns=("feedback",),
 EXP_TENANTS = (1, 8, 64)
 #: the cells that opt in to the wave program, as the reference's do
 WAVE = dict(engine="jax", jax_device_loop=True)
+
+#: the heap parity phase (a): the reference's Fig 4/6/7 parity grid
+#: (``tests/test_engine_parity.py``), (pattern, workload, messages) on
+#: each of ``HEAP_ARCHS`` at ``HEAP_NC`` consumers, seed 0, jitter 0,
+#: run once on the card's cohort engine and once on the heap engine
+HEAP_GRID = (("work_sharing", "dstream", 4096),
+             ("feedback", "dstream", 4096),
+             ("broadcast_gather", "generic", 400))
+HEAP_ARCHS = ("dts", "prs-haproxy", "mss")
+HEAP_NC = 8
+#: chaos scenario -> its parity band's scope (``tests/test_chaos.py``)
+CHAOS_SCOPE = {"tunnel": "link", "broker": "broker",
+               "consumer": "consumer", "autoscale": "autoscale"}
+#: the heap parity phase (d): ``examples/quickstart.py`` through the port
+#: (its work-sharing table: dstream, 8 x 8, 2048 messages, seed 0), and
+#: the lines the reference package prints for it on each engine
+#: (``PYTHONPATH=src python examples/quickstart.py [--engine heap]``)
+QUICKSTART_ARCHS = ("dts", "prs-haproxy", "prs-stunnel", "mss")
+QUICKSTART_DEPLOY = (
+    "DTS : requires firewall/iptables rules, NodePort + DNS admin; viable "
+    "only within unified administrative domains",
+    "PRS : overlay producer -> 198.51.100.1:5100 -> 198.51.100.0:5100 -> "
+    "consumer (uid=uid-000001)",
+    "MSS : provisioned amqps://rabbitmq-abc123-1.apps.olivine.ccs.ornl.gov"
+    ":443")
+QUICKSTART_TABLE = {
+    "vectorized": ("dts               35691 msgs/s (4.68 Gbps)",
+                   "prs-haproxy       18775 msgs/s (2.46 Gbps)",
+                   "prs-stunnel        6032 msgs/s (0.79 Gbps)",
+                   "mss               14144 msgs/s (1.85 Gbps)",
+                   "  prs-haproxy    1.90x",
+                   "  prs-stunnel    5.92x",
+                   "  mss            2.52x"),
+    "heap": ("dts               35330 msgs/s (4.63 Gbps)",
+             "prs-haproxy       18772 msgs/s (2.46 Gbps)",
+             "prs-stunnel        6034 msgs/s (0.79 Gbps)",
+             "mss               14137 msgs/s (1.85 Gbps)",
+             "  prs-haproxy    1.88x",
+             "  prs-stunnel    5.85x",
+             "  mss            2.50x"),
+}
 
 #: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
 #: causal, window, logit cap).  The first is granite-8b's prefill shape
@@ -1581,16 +1643,17 @@ def _flow_specs(pattern: str, n: int, msgs: int, cap: int, over: dict):
             for s in SEEDS]
 
 
-def drive_flow(dev) -> tuple[list, dict]:
+def drive_flow(dev) -> tuple[list, dict, dict]:
     """Every flow cell through ``run_many`` on the card, after a warm-up
     run of a small flow cell, timed ``COHORT_REPEATS`` times: every lane
     consumes every message, rejects publishes (and, in the parity cell,
     withholds confirms), no confirm is left withheld, no cell takes the
     wave program (no pump launch), and each ran the cohort engine.
-    Returns the per-cell rows and the launches of the runs."""
+    Returns the per-cell rows, the launches of the runs and each cell's
+    results by name."""
     from repro_torch import summarize
     _cohort_run(_flow_specs("feedback", 2, 512, 48, {}), dev)
-    rows, total = [], {}
+    rows, total, results = [], {}, {}
     for name, n, msgs, cap, over in FLOW_CELLS:
         specs = _flow_specs("feedback", n, msgs, cap, over)
         walls, reads = [], []
@@ -1605,6 +1668,7 @@ def drive_flow(dev) -> tuple[list, dict]:
                                      f"left a confirm withheld")
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
+        results[name] = res
         rej = [r.rejected_publishes for r in res]
         blk = [r.blocked_confirms for r in res]
         for r in res:
@@ -1625,7 +1689,7 @@ def drive_flow(dev) -> tuple[list, dict]:
             blocked=blk,
             throughput_msgs_s=[s.throughput_msgs_s for s in sm],
             median_rtt_s=[s.median_rtt_s for s in sm]))
-    return rows, total
+    return rows, total, results
 
 
 @contextlib.contextmanager
@@ -1665,7 +1729,7 @@ def _chaos_holds(r, what: str) -> dict:
     return m
 
 
-def drive_chaos(dev) -> tuple[list, dict, dict]:
+def drive_chaos(dev) -> tuple[list, dict, dict, list]:
     """The chaos scoreboard through ``patterns.chaos_campaign`` on the card
     at its full size, warm (after a small broker-outage cell): one
     ``run_many`` of the 15 cells, each solo on the cohort engine with no
@@ -1675,7 +1739,7 @@ def drive_chaos(dev) -> tuple[list, dict, dict]:
     nothing, and the link outage stretches the run by more than 0 and
     less than the outage's length against the arch's baseline.  Returns
     the per-point rows (the scoreboard beside each cell's hops), the
-    launches, and the phase's wall and counts."""
+    launches, the phase's wall and counts, and the 15 runs."""
     from repro_torch.core.patterns import chaos_campaign, chaos_cell
     _cohort_run([chaos_cell("prs-haproxy", "broker", total_messages=256,
                             t0=0.2, t1=0.5)], dev)
@@ -1727,7 +1791,7 @@ def drive_chaos(dev) -> tuple[list, dict, dict]:
     phase = dict(cells=len(points), wall_s=wall,
                  us_per_event=wall / sum(r.n_events for r in results) * 1e6,
                  host_reads=reads)
-    return rows, counts, phase
+    return rows, counts, phase, results
 
 
 def _held(got: float, want: float, tol: float, what: str) -> float:
@@ -1877,6 +1941,269 @@ def drive_availability(dev) -> tuple[dict, dict]:
                curves={a: [dataclasses.asdict(p) for p in pts]
                        for a, pts in study.curves.items()})
     return row, counts
+
+
+def _heap_of(spec):
+    """``spec`` on the heap engine."""
+    return dataclasses.replace(spec, params=dataclasses.replace(
+        spec.params, engine="heap"))
+
+
+def _heap_timed(fn) -> tuple:
+    """``fn()`` on the heap engine: ``(out, wall)``, with the launches and
+    the cohort runs counted from 0 and held at 0 (the heap engine runs
+    on the host and never reaches the card's engines)."""
+    out, wall, counts = _counted(fn)
+    if counts["runs"] or any(counts[k] for k in _launches()):
+        raise AssertionError(f"heap engine: {counts}: a heap cell ran on "
+                             f"another engine")
+    return out, wall
+
+
+def _part_row(heap_results, heap_wall: float, card_wall: float,
+              cells: list) -> dict:
+    """One part's line: the heap engine's wall, events and events a second
+    on the host CPU beside the card engine's wall."""
+    events = sum(r.n_events for r in heap_results)
+    return dict(heap_host_cpu_wall_s=heap_wall, heap_events=events,
+                heap_events_per_s_host_cpu=events / heap_wall,
+                card_wall_s=card_wall, cells=cells)
+
+
+def heap_grid(dev) -> dict:
+    """(a) The reference's Fig 4/6/7 parity grid: each cell of
+    ``HEAP_GRID`` on ``HEAP_ARCHS`` through ``run_pattern`` on the card's
+    cohort engine and on the heap engine, held to the reference's bands
+    and to equal message counts."""
+    from repro_torch import run_pattern, summarize
+    from repro_torch.core.parity import band
+    cells, heap_rs, heap_wall, card_wall = [], [], 0.0, 0.0
+    for pattern, wl, msgs in HEAP_GRID:
+        for arch in HEAP_ARCHS:
+            kw = dict(total_messages=msgs, n_runs=1, seed=0, jitter=0.0,
+                      device=dev)
+            (v,), wall, counts = _counted(lambda: run_pattern(
+                pattern, arch, wl, HEAP_NC, engine="vectorized", **kw))
+            if counts["runs"] != 1 or counts["pump_assign"]:
+                raise AssertionError(f"heap grid {pattern}/{arch}: {counts}")
+            card_wall += wall
+            (h,), hwall = _heap_timed(lambda: run_pattern(
+                pattern, arch, wl, HEAP_NC, engine="heap", **kw))
+            heap_wall += hwall
+            heap_rs.append(h)
+            hs, vs = summarize(h), summarize(v)
+            want = msgs * (HEAP_NC if pattern == "broadcast_gather" else 1)
+            if not hs.n_messages == vs.n_messages == want:
+                raise AssertionError(f"heap grid {pattern}/{arch}: "
+                                     f"{hs.n_messages} and {vs.n_messages} "
+                                     f"of {want}")
+            if hs.engine != "heap" or vs.engine != "vectorized":
+                raise AssertionError(f"heap grid {pattern}/{arch}: engines "
+                                     f"{hs.engine}, {vs.engine}")
+            held = {"work_sharing": (
+                ("throughput_msgs_s", f"work_sharing.{arch}.throughput"),),
+                "feedback": (
+                ("median_rtt_s", f"feedback.{arch}.median_rtt"),
+                ("throughput_msgs_s", "feedback.all.throughput")),
+                "broadcast_gather": (
+                ("throughput_msgs_s", "broadcast_gather.all.throughput"),
+                ("median_rtt_s", f"broadcast_gather.{arch}.gather_rtt"))}
+            devs = {}
+            for field, key in held[pattern]:
+                devs[key] = dict(
+                    dev=_held(getattr(vs, field), getattr(hs, field),
+                              band(key), f"heap grid {pattern}/{arch} "
+                                         f"{field}"),
+                    band=band(key), heap=getattr(hs, field),
+                    card=getattr(vs, field))
+            cells.append(dict(cell=f"{pattern}/{wl}/{arch}/c{HEAP_NC}",
+                              msgs=want, heap_events=h.n_events,
+                              card_events=v.n_events, card_wall_s=wall,
+                              heap_host_cpu_wall_s=hwall, held=devs))
+    return _part_row(heap_rs, heap_wall, card_wall, cells)
+
+
+def heap_chaos(dev, rows: list, results: list, card_wall: float) -> dict:
+    """(b) The chaos phase's 15 card runs (``results``, with the phase's
+    ``rows`` naming each one's scenario) against heap runs of the same
+    specs, held by ``tests/test_chaos.py``'s checks: ``sim_time`` within
+    the scenario's ``chaos.<scope>.summary`` band (a baseline within the
+    tightest of them: the reference sets no band of its own for the
+    failure-free cell), nothing lost, agreement on a finite recovery and
+    ``chaos.all.recovery`` where finite, redeliveries within
+    ``chaos.all.redelivered`` (an absolute gap of at most 8 below 8), none
+    in the tunnel, autoscale and baseline cells, and the broker outage's
+    rejects in both engines and within ``chaos.broker.rejects``."""
+    import math
+    from repro_torch import chaos_metrics, run_many
+    from repro_torch.core.parity import band, factor_band
+    heap, wall = _heap_timed(lambda: run_many(
+        [_heap_of(r.spec) for r in results], device=dev))
+    base_tol = min(band(f"chaos.{s}.summary") for s in CHAOS_SCOPE.values())
+    cells = []
+    for row, v, h in zip(rows, results, heap):
+        sched, scenario = v.spec.params.chaos, row["scenario"]
+        what = f"heap chaos {v.spec.arch}/{scenario}"
+        if h.spec.params.engine != "heap" or not h.feasible:
+            raise AssertionError(f"{what}: not a feasible heap run")
+        tol = (band(f"chaos.{CHAOS_SCOPE[scenario]}.summary")
+               if sched is not None else base_tol)
+        out = dict(cell=f"{v.spec.arch}/{scenario}", heap_events=h.n_events,
+                   card_events=v.n_events, heap_sim_time_s=h.sim_time,
+                   card_sim_time_s=v.sim_time, band=tol,
+                   sim_time_dev=_held(v.sim_time, h.sim_time, tol,
+                                      f"{what} sim_time"),
+                   redelivered=[h.redelivered, v.redelivered],
+                   rejected=[h.rejected_publishes, v.rejected_publishes])
+        if sched is None:
+            if h.redelivered or v.redelivered or not (
+                    h.n_consumed == v.n_consumed == v.spec.total_messages):
+                raise AssertionError(f"{what}: {out}")
+            cells.append(out)
+            continue
+        mh, mv = chaos_metrics(h, sched), chaos_metrics(v, sched)
+        if mh.lost or mv.lost:
+            raise AssertionError(f"{what}: lost {mh.lost}, {mv.lost}")
+        if math.isfinite(mh.recovery_s) != math.isfinite(mv.recovery_s):
+            raise AssertionError(f"{what}: recoveries {mh.recovery_s} and "
+                                 f"{mv.recovery_s} disagree on finite")
+        if math.isfinite(mh.recovery_s):
+            rec = abs(mv.recovery_s - mh.recovery_s) / max(mh.recovery_s, 1.0)
+            if not rec < band("chaos.all.recovery"):
+                raise AssertionError(f"{what}: recovery deviation {rec}")
+            out["recovery_dev"] = rec
+        out["recovery_s"] = [mh.recovery_s, mv.recovery_s]
+        if scenario in ("tunnel", "autoscale"):
+            if h.redelivered or v.redelivered:
+                raise AssertionError(f"{what}: redelivered {out}")
+        elif h.redelivered >= 8:
+            lo, hi = factor_band("chaos.all.redelivered")
+            if not lo < v.redelivered / h.redelivered < hi:
+                raise AssertionError(f"{what}: redelivered {out}")
+        elif abs(v.redelivered - h.redelivered) > 8:
+            raise AssertionError(f"{what}: redelivered {out}")
+        if scenario == "broker":
+            lo, hi = factor_band("chaos.broker.rejects")
+            if not (h.rejected_publishes > 0 and v.rejected_publishes > 0
+                    and lo < v.rejected_publishes / h.rejected_publishes
+                    < hi):
+                raise AssertionError(f"{what}: rejects {out}")
+        cells.append(out)
+    return _part_row(heap, wall, card_wall, cells)
+
+
+def heap_flow(dev, results: list, card_wall: float) -> dict:
+    """(c) The flow parity cell's three card lanes against a solo heap run
+    of each seed: throughput and median RTT within
+    ``stacked_overflow.lanes.summary``, rejects and withheld confirms
+    within their factor bands and non-zero in every lane of both
+    engines, every message consumed."""
+    from repro_torch import run_experiment, summarize
+    from repro_torch.core.parity import band, factor_band
+    heap, wall = _heap_timed(lambda: [
+        run_experiment(_heap_of(r.spec), device=dev) for r in results])
+    tol = band("stacked_overflow.lanes.summary")
+    rej_lo, rej_hi = factor_band("stacked_overflow.lanes.rejected")
+    blk_lo, blk_hi = factor_band("stacked_overflow.lanes.blocked")
+    cells = []
+    for v, h in zip(results, heap):
+        what = f"heap flow seed {v.spec.params.seed}"
+        msgs = v.spec.total_messages
+        if not (h.n_consumed == v.n_consumed == msgs
+                and h.rejected_publishes > 0 and h.blocked_confirms > 0
+                and v.rejected_publishes > 0 and v.blocked_confirms > 0):
+            raise AssertionError(f"{what}: consumed {h.n_consumed}, "
+                                 f"{v.n_consumed}; counters {h.rejected_publishes}"
+                                 f"/{h.blocked_confirms}, "
+                                 f"{v.rejected_publishes}/{v.blocked_confirms}")
+        rej = v.rejected_publishes / h.rejected_publishes
+        blk = v.blocked_confirms / h.blocked_confirms
+        if not (rej_lo < rej < rej_hi and blk_lo < blk < blk_hi):
+            raise AssertionError(f"{what}: rejected x{rej}, blocked x{blk}")
+        hs, vs = summarize(h), summarize(v)
+        cells.append(dict(
+            seed=v.spec.params.seed, heap_events=h.n_events, band=tol,
+            throughput_dev=_held(vs.throughput_msgs_s, hs.throughput_msgs_s,
+                                 tol, f"{what} throughput"),
+            median_rtt_dev=_held(vs.median_rtt_s, hs.median_rtt_s, tol,
+                                 f"{what} median RTT"),
+            rejected=[h.rejected_publishes, v.rejected_publishes],
+            blocked=[h.blocked_confirms, v.blocked_confirms],
+            rejected_factor=rej, blocked_factor=blk))
+    return _part_row(heap, wall, card_wall, cells)
+
+
+def quickstart_deploy() -> list:
+    """The deployment lines of ``examples/quickstart.py``, through the
+    port."""
+    from repro_torch import (
+        ResourceSettings, S3MService, establish_prs_session,
+        make_architecture)
+    dts = make_architecture("dts")
+    sess = establish_prs_session(num_conn=1, tunnel="haproxy")
+    s3m = S3MService()
+    s3m.register_project("abc123")
+    token = s3m.issue_token("abc123")
+    cluster = s3m.provision_cluster(token, settings=ResourceSettings(
+        cpus=12, ram_gbs=32, nodes=3))
+    return [f"DTS : {dts.deployment_feasibility}",
+            f"PRS : overlay {' -> '.join(sess.hops)} (uid={sess.uid})",
+            f"MSS : provisioned {cluster.amqps_url}"]
+
+
+def quickstart_table(engine: str, dev) -> tuple:
+    """The work-sharing table of ``examples/quickstart.py`` on ``engine``,
+    through the port: ``(lines, results)``."""
+    from repro_torch import overhead_table, run_pattern, summarize
+    lines, summaries, results = [], [], []
+    for arch in QUICKSTART_ARCHS:
+        r = run_pattern("work_sharing", arch, "dstream", 8,
+                        total_messages=2048, n_runs=1, engine=engine,
+                        device=dev)[0]
+        s = summarize(r)
+        results.append(r)
+        summaries.append(s)
+        lines.append(f"{arch:14s} {s.throughput_msgs_s:8.0f} msgs/s "
+                     f"({s.goodput_gbps:.2f} Gbps)" if s.feasible else
+                     f"{arch:14s} INFEASIBLE")
+    for (arch, wl, nc), ov in overhead_table(summaries).items():
+        lines.append(f"  {arch:14s} {ov:.2f}x")
+    return lines, results
+
+
+def heap_quickstart(dev) -> dict:
+    """(d) ``examples/quickstart.py`` through the port: its deployment
+    lines, and its work-sharing table on the card's cohort engine and on
+    the heap engine, each equal to what the reference prints."""
+    deploy = quickstart_deploy()
+    if tuple(deploy) != QUICKSTART_DEPLOY:
+        raise AssertionError(f"quickstart deployment: {deploy}")
+    (card, _), card_wall, counts = _counted(
+        lambda: quickstart_table("vectorized", dev))
+    if counts["runs"] != len(QUICKSTART_ARCHS) or counts["pump_assign"]:
+        raise AssertionError(f"quickstart on the card: {counts}")
+    (heap, results), wall = _heap_timed(
+        lambda: quickstart_table("heap", dev))
+    for engine, got in (("vectorized", card), ("heap", heap)):
+        if tuple(got) != QUICKSTART_TABLE[engine]:
+            raise AssertionError(f"quickstart on {engine}: {got}")
+    return dict(_part_row(results, wall, card_wall, []), deployment=deploy,
+                card_table=card, heap_table=heap)
+
+
+def drive_heap_parity(dev, chaos_rows: list, chaos_results: list,
+                      chaos_wall: float, flow_results: list,
+                      flow_wall: float) -> dict:
+    """The heap parity phase: the card's cohort engine held to the port's
+    heap engine at the reference's parity bands, in four parts, one row
+    each: (a) ``heap_grid``, (b) ``heap_chaos`` on the chaos phase's runs,
+    (c) ``heap_flow`` on the flow parity cell's lanes, (d)
+    ``heap_quickstart``.  No part launches a kernel."""
+    return {"(a) Fig 4/6/7 grid": heap_grid(dev),
+            "(b) chaos cells": heap_chaos(dev, chaos_rows, chaos_results,
+                                          chaos_wall),
+            "(c) flow parity lanes": heap_flow(dev, flow_results, flow_wall),
+            "(d) quickstart": heap_quickstart(dev)}
 
 
 def _chaos_xcheck_spec(arch: str, scenario: str):
@@ -2108,12 +2435,12 @@ def main() -> int:
     for r in rows:
         print("cohort cells:", json.dumps(r))
     done("cohort cells")
-    rows, by_path["flow"] = drive_flow(dev)
-    for r in rows:
+    flow_rows, by_path["flow"], flow_results = drive_flow(dev)
+    for r in flow_rows:
         print("flow cells:", json.dumps(r))
     done("flow cells")
-    rows, by_path["chaos"], phase = drive_chaos(dev)
-    for r in rows:
+    chaos_rows, by_path["chaos"], phase, chaos_results = drive_chaos(dev)
+    for r in chaos_rows:
         print("chaos cells:", json.dumps(r))
     print("chaos campaign:", json.dumps(phase))
     done("chaos cells")
@@ -2124,6 +2451,11 @@ def main() -> int:
     avail, by_path["availability"] = drive_availability(dev)
     print("availability:", json.dumps(avail))
     done("availability")
+    for part, row in drive_heap_parity(
+            dev, chaos_rows, chaos_results, phase["wall_s"],
+            flow_results["parity"], flow_rows[0]["wall_s"]).items():
+        print(f"heap parity {part}:", json.dumps(row))
+    done("heap parity")
     print("cross-check:", json.dumps(cross_check(dev)))
     print("cohort cross-check:", json.dumps(cohort_cross_check(dev)))
     print("flow cross-check:", json.dumps(flow_cross_check(dev)))

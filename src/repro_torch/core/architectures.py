@@ -14,18 +14,23 @@ paper's deployments share hardware:
   → RabbitMQ; deliveries traverse the ingress in the opposite direction.
 
 A framework-free copy of the reference package's ``architectures``
-module, without the SciStream session and S3M cluster handles, which no
-hop graph reads.  Every resource, path and calibration constant is the
-reference's, so the wave program sees the same hop graphs.
+module.  Every resource, path, calibration constant and deployment
+feasibility text is the reference's, so every engine of the port sees
+the same hop graphs; PRS keeps an optional SciStream session and MSS an
+optional S3M cluster handle, which no hop graph reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import TYPE_CHECKING, Any, Optional
 
 from repro_torch.core.ds2hpc import ClusterInventory
 from repro_torch.core.workloads import GBIT
+
+if TYPE_CHECKING:
+    from repro_torch.core.s3m import ManagedCluster
+    from repro_torch.core.scistream import StreamingSession
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +134,7 @@ class Architecture:
     and reads the ``tenant`` argument of the path constructors."""
 
     name: str = "base"
+    deployment_feasibility: str = ""
     tenant_paths: bool = False
 
     def __init__(self, inventory: Optional[ClusterInventory] = None,
@@ -262,6 +268,9 @@ class DirectStreaming(Architecture):
     terminating on the facility's shared edge gateway."""
 
     name = "dts"
+    deployment_feasibility = (
+        "requires firewall/iptables rules, NodePort + DNS admin; viable only "
+        "within unified administrative domains")
 
     def configure(self, n_producers: int, n_consumers: int,
                   tenants: int = 1) -> None:
@@ -330,14 +339,19 @@ class ProxiedStreaming(Architecture):
     """PRS: S2DS proxies + overlay tunnel (Stunnel or HAProxy)."""
 
     name = "prs"
+    deployment_feasibility = (
+        "moderate: proxies on pre-authorized gateway nodes (DTNs/DSNs); "
+        "overcomes NAT/firewalls with centralized rules")
 
     def __init__(self, inventory: Optional[ClusterInventory] = None,
                  cal: Optional[Calibration] = None,
-                 tunnel: str = "haproxy", num_conns: int = 1) -> None:
+                 tunnel: str = "haproxy", num_conns: int = 1,
+                 session: Optional["StreamingSession"] = None) -> None:
         if tunnel not in ("haproxy", "stunnel"):
             raise ValueError(f"unknown tunnel {tunnel!r}")
         self.tunnel = tunnel
         self.num_conns = num_conns
+        self.session = session      # optional scistream.StreamingSession
         super().__init__(inventory, cal)
         self.name = f"prs-{tunnel}" + (f"-c{num_conns}" if num_conns > 1 else "")
 
@@ -447,6 +461,15 @@ class ManagedServiceStreaming(Architecture):
     consumers traverse LB+ingress."""
 
     name = "mss"
+    deployment_feasibility = (
+        "highest: user needs only outbound 443; facility manages routing, "
+        "DNS, TLS, provisioning (S3M API)")
+
+    def __init__(self, inventory: Optional[ClusterInventory] = None,
+                 cal: Optional[Calibration] = None,
+                 managed_cluster: Optional["ManagedCluster"] = None) -> None:
+        self.managed_cluster = managed_cluster   # from s3m.provision_cluster
+        super().__init__(inventory, cal)
 
     def _build(self) -> None:
         c = self.cal
@@ -524,3 +547,5 @@ def make_architecture(name: str, inventory: Optional[ClusterInventory] = None,
                                 num_conns=num_conns, **kw)
     raise ValueError(f"unknown architecture {name!r}")
 
+
+ALL_ARCHITECTURES = ("dts", "prs-stunnel", "prs-haproxy", "prs-haproxy-c4", "mss")

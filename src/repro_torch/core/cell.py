@@ -23,12 +23,14 @@ import numpy as np
 
 from repro_torch.core.architectures import (
     Architecture, PathElement, make_architecture)
+from repro_torch.core.broker import ClassicQueue
 from repro_torch.core.ds2hpc import ClusterInventory
 from repro_torch.core.simulator import ExperimentSpec, RunResult, check_feasibility
 
 #: RabbitMQ credit_flow_default_credit: a publishing channel is blocked
-#: when its un-drained backlog exceeds ~400 messages per publisher
-FLOW_CREDIT = 400
+#: when its un-drained backlog exceeds ~400 messages per publisher (the
+#: broker model's constant)
+FLOW_CREDIT = ClassicQueue.FLOW_CREDIT
 
 #: the publish round shrinks to 2 (auto mode) when a shared DSN-side pipe
 #: is estimated at >= this fraction of the run's bottleneck...
@@ -74,9 +76,10 @@ def _align_paths(paths: dict) -> tuple[dict, int]:
 
 def _stack_key(spec: ExperimentSpec, i: int) -> tuple:
     """Cells that differ only in ``params.seed`` stack into one run; a
-    chaos cell (``i``, its place in the batch) never stacks: its epoch
-    state is the run's own."""
-    if spec.params.chaos is not None:
+    chaos cell or a heap-engine cell (``i``, its place in the batch)
+    never stacks: a chaos cell's epoch state is the run's own, and the
+    heap engine runs one seed at a time."""
+    if spec.params.chaos is not None or spec.params.engine == "heap":
         return ("solo", i)
     return (spec.pattern, spec.arch, spec.workload, spec.n_producers,
             spec.n_consumers, spec.total_messages, spec.tenants,

@@ -729,9 +729,10 @@ def run_pattern(pattern: str, arch: str, workload: str | Workload,
     patterns use a single producer (paper §5.2).  ``engine`` selects the
     simulator backend: ``"vectorized"`` (the default, the per-cohort
     engine) or ``"jax"`` (the same engine, or with ``jax_device_loop=True``
-    the wave program where its gate accepts the cell); the heap engine is
-    not ported.  ``None`` uses ``SimParams.engine``'s default.  Each seed
-    runs solo through :func:`~repro_torch.core.run.run_experiment`.
+    the wave program where its gate accepts the cell) or ``"heap"`` (the
+    one-event-per-hop model, on the host).  ``None`` uses
+    ``SimParams.engine``'s default.  Each seed runs solo through
+    :func:`~repro_torch.core.run.run_experiment`.
     """
     results = []
     for r in range(n_runs):

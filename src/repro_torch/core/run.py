@@ -18,12 +18,17 @@ The counterparts of the reference's ``vectorized.run_many`` and
   ``"vectorized"`` in ``run_many``, as the reference's ``run_many`` does
   (:func:`jax_supported`), and raises in ``run_experiment``, as the
   reference's jax engine does;
-* ``"heap"`` raises ``NotImplementedError``: the heap engine is not
-  ported yet.
+* ``"heap"`` cells run on the heap engine,
+  :class:`~repro_torch.core.simulator.StreamSim`, the one-event-per-hop
+  model the parity bands are defined against.  It runs on the host, as
+  its counterpart in the reference does: ``device`` is still resolved
+  first (``"cuda"`` without a GPU raises), and no other engine's cell is
+  ever sent to it, nor a heap cell to another engine.
 
 In ``run_many``, cells that differ only by seed stack into seed-lanes of
 one run (at most :data:`STACK_MAX_LANES` per run); a chaos cell never
-stacks and runs solo on the per-cohort engine.
+stacks and runs solo on the per-cohort engine, and a heap cell runs
+solo, as the reference groups them.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from repro_torch.core.architectures import Architecture
 from repro_torch.core.cell import WAVE_PATTERNS, WaveCell, _stack_key
 from repro_torch.core.ds2hpc import ClusterInventory
 from repro_torch.core.simulator import (
-    ExperimentSpec, InfeasibleConfiguration, RunResult)
+    ExperimentSpec, InfeasibleConfiguration, RunResult, StreamSim)
 from repro_torch.core.torch_engine import TorchStreamSim
 from repro_torch.device import resolve_device
 
@@ -58,13 +63,6 @@ def jax_supported(spec: ExperimentSpec) -> tuple[bool, str]:
     return True, ""
 
 
-def _check_ported(spec: ExperimentSpec) -> None:
-    if spec.params.engine == "heap":
-        raise NotImplementedError(
-            "engine='heap' is not ported yet (ROADMAP.md, open item 1.2: "
-            "the heap engine); use engine='vectorized' or engine='jax'")
-
-
 def _run(specs: list, device: torch.device,
          inventory: Optional[ClusterInventory],
          arch: Optional[Architecture]) -> list[RunResult]:
@@ -72,7 +70,6 @@ def _run(specs: list, device: torch.device,
     results: list = [None] * len(specs)
     groups: dict = {}
     for i, spec in enumerate(specs):
-        _check_ported(spec)
         groups.setdefault(_stack_key(spec, i), []).append(i)
     waves: list = []
     for idxs in groups.values():
@@ -81,6 +78,10 @@ def _run(specs: list, device: torch.device,
             spec = specs[chunk[0]]
             seeds = [specs[i].params.seed for i in chunk]
             try:
+                if spec.params.engine == "heap":
+                    (i,) = chunk
+                    results[i] = StreamSim(spec, inventory, arch).run()
+                    continue
                 if (spec.params.engine == "jax"
                         and spec.params.jax_device_loop
                         and spec.pattern in WAVE_PATTERNS):
@@ -111,8 +112,8 @@ def run_many(specs: Sequence[ExperimentSpec], device: "torch.device | str" = "cu
     :func:`jax_supported` refuses run as ``"vectorized"``, recorded per
     cell in the result's ``spec.params.engine``.  Returns one
     :class:`RunResult` per spec, in input order; infeasible specs come
-    back as ``feasible=False`` results.  Raises ``ValueError`` for an
-    unknown pattern, ``NotImplementedError`` for a heap-engine cell, and
+    back as ``feasible=False`` results.  Heap-engine cells run solo on
+    the host.  Raises ``ValueError`` for an unknown pattern and
     ``RuntimeError`` when ``device`` is CUDA and no GPU is available."""
     device = resolve_device(device)
     specs = list(specs)
@@ -132,7 +133,8 @@ def run_experiment(spec: ExperimentSpec,
     on ``device`` (the GPU unless the caller asks for ``"cpu"``);
     infeasible configs return a RunResult with feasible=False (matching
     the paper's missing Stunnel data points).  ``arch`` is an
-    architecture built by the caller (a custom calibration)."""
+    architecture built by the caller (a custom calibration).  A
+    ``"heap"`` cell runs on the host, after ``device`` is resolved."""
     device = resolve_device(device)
     if spec.params.engine == "jax" and spec.params.chaos is not None:
         raise ValueError(

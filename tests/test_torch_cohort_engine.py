@@ -16,8 +16,9 @@ against the reference's NumPy ``VectorizedStreamSim``, on the CPU.
   ``run_many`` and ``run_experiment``); a ``"jax"`` cell with the flag
   that the wave gate accepts runs the wave program (and its pump), a
   refused one the cohort engine; a jax chaos cell is rewritten to
-  ``"vectorized"``; ``"heap"`` raises ``NotImplementedError`` and an
-  unknown name the reference's ``ValueError``; a cell with reachable
+  ``"vectorized"``; ``"heap"`` runs the port's heap engine (held to the
+  reference's in ``test_torch_heap_engine.py``) and an unknown name
+  raises the reference's ``ValueError``; a cell with reachable
   flow-control events runs the cohort engine and matches the reference,
   and the default ``device="cuda"`` raises without a GPU;
 * on the card (``gpu`` marker), a Fig 7b cell is held to the reference at
@@ -425,12 +426,27 @@ def test_jax_chaos_cell_is_rewritten_to_vectorized(routes):
     assert msgs[0] == msgs[1]
 
 
-def test_heap_engine_is_not_ported_and_unknown_engines_raise():
-    _, heap = _pair("work_sharing", "dts", 2, 2, 64, engine="heap")
-    for run in (repro_torch.run_many, lambda s, device: (
-            repro_torch.run_experiment(s[0], device=device))):
-        with pytest.raises(NotImplementedError, match="heap engine"):
-            run([heap], device="cpu")
+def test_heap_engine_runs_and_equals_the_reference(routes):
+    """A ``"heap"`` cell runs on the port's heap engine, through
+    ``run_many`` and ``run_experiment``, and equals the reference's heap
+    run bit for bit; neither the wave program nor the cohort engine
+    runs."""
+    ref, heap = _pair("work_sharing", "dts", 2, 2, 64, engine="heap")
+    want = ref_run_experiment(ref)
+    for run in (repro_torch.run_many, lambda s, device: [
+            repro_torch.run_experiment(s[0], device=device)]):
+        (got,) = run([heap], device="cpu")
+        assert got.spec.params.engine == "heap"
+        for f in ("consume_times", "rtts", "publish_starts",
+                  "consume_producers", "rtt_producers"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        for f in ("n_events", "sim_time", "rejected_publishes",
+                  "blocked_confirms", "redelivered"):
+            assert getattr(got, f) == getattr(want, f), f
+    assert routes() == (0, 0)
+
+
+def test_unknown_engines_raise_the_reference_error():
     msgs = []
     for make in (RefParams, repro_torch.SimParams):
         with pytest.raises(ValueError) as e:

@@ -73,6 +73,28 @@ def test_port_sources_import_no_jax_or_repro(path):
             assert top not in ("jax", "jaxlib", "repro"), (path, n)
 
 
+#: names of ``repro.core`` the port exports from ``repro_torch`` since its
+#: heap engine and deployment study were ported
+HEAP_SLICE_NAMES = (
+    "BrokerCluster", "ClassicQueue", "Message", "StreamSim", "ENGINES",
+    "Engine", "SimConfig", "get_engine", "RabbitMQRelease",
+    "ResourceSettings", "S3MService", "S2CS", "S2UC",
+    "establish_prs_session", "provision_tenant_tunnels",
+    "make_architecture", "ALL_ARCHITECTURES")
+
+
+@pytest.mark.parametrize("name", HEAP_SLICE_NAMES)
+def test_port_exports_the_reference_names(name):
+    import repro.core
+    assert name in repro.core.__all__
+    got = getattr(repro_torch, name)
+    want = getattr(repro.core, name)
+    assert type(got) is type(want)
+    if isinstance(want, type) or callable(want):
+        assert got.__name__ == want.__name__
+        assert got.__module__.startswith("repro_torch.")
+
+
 def test_workloads_match_reference():
     assert set(port_wl.WORKLOADS) == set(ref_wl.WORKLOADS)
     for name, w in ref_wl.WORKLOADS.items():
