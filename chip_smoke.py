@@ -75,12 +75,11 @@ tensor-core kernel):
   16384 messages on dts and mss, in-process, the dts group on the wave
   program (pump launches) and the mss group on the cohort engine (none),
   every summary reporting the jax engine; ``deployment_feasibility`` at
-  1, 8 and 64 tenants, its curves and headline;
+  1, 8 and 64 tenants of 64 messages each, its curves and headline;
 * the availability crossover — ``availability_crossover`` at the
-  reference's defaults but for the outage durations, 5, 40 and 80 s of
-  its five (single-fault ingress outages on dts and mss, 12 solo cohort
-  cells), nothing lost in any cell, its curves, crossover duration and
-  headline printed;
+  reference's defaults (single-fault ingress outages of 5, 20, 40, 80
+  and 120 s on dts and mss, 20 solo cohort cells), nothing lost in any
+  cell, its curves, crossover duration and headline printed;
 * the heap parity phase — the card's per-cohort engine held to the
   port's heap engine (``engine="heap"``, the one-event-per-hop model the
   reference's parity bands are defined against, which runs on the
@@ -122,7 +121,23 @@ tensor-core kernel):
   tokens held as granite's to the all-plain path and the blocked one; the SSD kernel held layer by layer to its plain version
   on the model's own inputs through the first macro-block; a profile of
   one prefill; ``generate``; decode steps against 32 x 4096 and 8 x 16384
-  cached tokens with flash decode, each beside one plain step.
+  cached tokens with flash decode, each beside one plain step;
+* the train phase — training as ``launch/train.run`` drives it, each
+  trainer from its ``build_trainer`` (``SyntheticTokens(seed=0)``, f32
+  masters, AdamW on ``cosine_warmup`` with the model's decayed set, the
+  microbatched train step under ``ModelContext()``, remat): granite-8b at full width cut to 8 of 36
+  layers, 16 steps, and zamba2-7b at full width cut to 13 of 81 Mamba2
+  layers (two macro-blocks and a tail layer), 8 steps, each of 4 x 4096
+  tokens in 4 microbatches, with their losses, grad norms, step walls,
+  tokens/s, peak memory and one profiled step (by kernel kind); every
+  loss finite, the first near ln V and the last at least 0.3 below it;
+  the same three steps of both smoke configs on the card and on the CPU,
+  compared by their losses, grad norms and each weight's trained change;
+  ``launch.train.run`` on the card resuming from its
+  checkpoint; and no model kernel launched in the phase, as training
+  runs the plain paths.  Then the kernels' forward-only guard: a train
+  step under ``attention_impl="pallas"`` and each model kernel called
+  with an input that requires grad raise.
 
 The line before the last holds the kernels' numbers as JSON, and the
 last line the device.  Any failure exits nonzero; without CUDA it exits
@@ -232,13 +247,16 @@ CHAOS_XCHECK_MSGS, CHAOS_XCHECK_WINDOW = 512, (1.0, 3.0)
 #: 64 consumers x 16384 messages (256 a producer, inside the wave gate's
 #: feedback corridor W < M <= 2W at the confirm window of 128) on dts,
 #: which the gate takes, and mss, which it refuses; (c) the deployment
-#: study at three of ``TENANT_SWEEP``'s seven tenant counts
+#: study at three of ``TENANT_SWEEP``'s seven tenant counts, 64 messages
+#: a tenant (the reference's 256 cut to keep the smoke's phases inside
+#: 1050 s on a slow host; the crossover stays inside the sweep)
 EXP_PATTERN = ("feedback", "dts", 256, 65536)
 EXP_CAMPAIGN = dict(name="fig6 c64", patterns=("feedback",),
                     architectures=("dts", "mss"), workloads=("dstream",),
                     consumers=(64,), n_runs=len(SEEDS), total_messages=16384,
                     params={"engine": "jax", "jax_device_loop": True})
 EXP_TENANTS = (1, 8, 64)
+EXP_TENANT_MSGS = 64
 #: the cells that opt in to the wave program, as the reference's do
 WAVE = dict(engine="jax", jax_device_loop=True)
 
@@ -366,6 +384,38 @@ DEPTHS = (1, 2, 4, 9, 18, 36)
 #: output to bf16 (2^-8 relative), plus float32 accumulation of at most
 #: ROW_ATOL of the row's RMS
 ROW_ATOL = 1e-4
+#: the train phase's full-width runs, as ``launch/train.run`` drives
+#: them: (arch, config fields cut, steps, microbatches).  Width uncut;
+#: depth cut so that 16 B a parameter (the f32 master, its f32 grad,
+#: which also accumulates the microbatches, and Adam's m and v) and the
+#: activations fit in 80 GB: granite-8b to 8 of 36 layers (2147553280
+#: parameters, 34.4 GB; all 36 would need 132 GB), zamba2-7b to 13 of 81
+#: Mamba2 layers, two macro-blocks of 6 and one tail layer, so that the
+#: shared block is applied twice (1448527632 parameters, 23.2 GB; all 81
+#: would need 108 GB); zamba2's 8 microbatches cannot divide a batch of 4
+TRAIN_RUNS = (
+    ("granite-8b", dict(n_layers=8), 16, 4),
+    ("zamba2-7b", dict(n_layers=13, n_macro_blocks=2, tail_mamba_layers=1),
+     8, 4),
+)
+#: train_4k's sequence (``configs/shapes.py``); its batch of 256 cut to 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 4096
+#: ``launch/train.py``'s peak learning rate for the full-width runs
+TRAIN_LR = 3e-4
+#: the first loss of a full-width run lies within [ln V - 0.5, ln V + 2],
+#: and the last at least this far below it (``tests/test_train_loop.py``'s
+#: own margin)
+TRAIN_DROP = 0.3
+#: the GPU-against-CPU train check: smoke configs with remat, 2
+#: microbatches, 3 steps of (batch, seq) at this learning rate; losses and
+#: grad norms within TRAIN_XDEV_RTOL relative, and each weight's trained
+#: change ``dW = w_3 - w_0`` within TRAIN_XDEV_DW of the CPU's,
+#: ``||dW_gpu - dW_cpu|| / ||dW_cpu||`` (bf16 activations round
+#: differently on the two devices; a step that updates nothing reads 1.0)
+TRAIN_XDEV = dict(archs=("granite-8b", "zamba2-7b"), steps=3, M=2, batch=4,
+                  seq=64, lr=1e-3)
+TRAIN_XDEV_RTOL = 2e-2
+TRAIN_XDEV_DW = 0.3
 
 
 def _cuda_ms(fn, n_iter: int, repeats: int = 7) -> float:
@@ -1815,7 +1865,7 @@ def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
     wave program (pump launches, no cohort run), mss the cohort engine
     (no pump launch, one stacked run), every summary reports the jax
     engine and consumes every message; (c) ``deployment_feasibility`` at
-    ``EXP_TENANTS`` on the cohort engine (no pump launch), every point
+    ``EXP_TENANTS`` x ``EXP_TENANT_MSGS`` on the cohort engine (no pump launch), every point
     feasible with every metric finite.  Returns the rows and the launches."""
     import math
     from repro_torch import (
@@ -1883,7 +1933,8 @@ def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
                               for c in camps for s in c.averaged])
 
     study, wall, counts = _counted(lambda: deployment_feasibility(
-        tenant_counts=EXP_TENANTS, device=dev))
+        tenant_counts=EXP_TENANTS, messages_per_tenant=EXP_TENANT_MSGS,
+        device=dev))
     if counts["pump_assign"] or not counts["runs"] or counts["withheld"]:
         raise AssertionError(f"deployment_feasibility: {counts}")
     add(counts)
@@ -1896,7 +1947,8 @@ def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
                     or not all(map(math.isfinite, vals))):
                 raise AssertionError(f"deployment_feasibility: {p}")
         curves[a] = [dataclasses.asdict(p) for p in pts]
-    feas_row = dict(cell=f"deployment_feasibility tenants {EXP_TENANTS}",
+    feas_row = dict(cell=f"deployment_feasibility tenants {EXP_TENANTS} x "
+                         f"{EXP_TENANT_MSGS} msgs",
                     wall_s=wall, cohort_runs=counts["runs"],
                     host_reads=counts["host_reads"],
                     crossover_tenants=study.crossover_tenants,
@@ -2321,10 +2373,25 @@ def profile_cohort(dev) -> dict:
     return out
 
 
-def _device_rows(prof, wall: float, cell: str, share_of: str = "") -> dict:
+def _kernel_kind(name: str) -> str:
+    """A device kernel's kind, from its name: an f32 GEMM (cuBLAS's
+    ``f32f32`` and CUTLASS's ``sgemm`` kernels), another GEMM (bf16), an
+    elementwise kernel, a reduction, or other."""
+    if any(t in name for t in ("gemm", "nvjet", "cutlass")):
+        return "gemm f32" if ("f32f32" in name or "sgemm" in name) \
+            else "gemm bf16"
+    for kind in ("elementwise", "reduce"):
+        if kind in name:
+            return kind
+    return "other"
+
+
+def _device_rows(prof, wall: float, cell: str, share_of: str = "",
+                 kinds: bool = False) -> dict:
     """Device busy time, idle share of ``wall`` and the top kernels of a
     ``torch.profiler`` run; with ``share_of``, the device time, launches
-    and share of busy time of the kernels whose name holds it.  Summed
+    and share of busy time of the kernels whose name holds it; with
+    ``kinds``, device time and launches by :func:`_kernel_kind`.  Summed
     from the profiler's raw device events (kernels, copies), which skips
     building an event tree: a cohort run has a million kernels."""
     import torch
@@ -2344,6 +2411,13 @@ def _device_rows(prof, wall: float, cell: str, share_of: str = "") -> dict:
                device_events=sum(r[1] for r in rows),
                top=[dict(us=r[0], count=r[1], name=r[2][:80])
                     for r in rows[:10]])
+    if kinds:
+        out["by_kind"] = by_kind = {}
+        for us, n, name in rows:
+            k = _kernel_kind(name)
+            a = by_kind.setdefault(k, dict(us=0.0, count=0))
+            a["us"] += us
+            a["count"] += n
     if share_of:
         mine = [r for r in rows if share_of in r[2]]
         us = sum(r[0] for r in mine)
@@ -2351,6 +2425,225 @@ def _device_rows(prof, wall: float, cell: str, share_of: str = "") -> dict:
             us=us, count=sum(r[1] for r in mine),
             share_of_busy=us / 1e6 / busy if rows else "not measured")
     return out
+
+
+def _token_batches(cfg, n: int, batch: int, seq: int, dev) -> list:
+    """``n`` batches of ``SyntheticTokens(seed=0)`` on ``dev``."""
+    import torch
+    from repro_torch.data import SyntheticTokens
+    it = iter(SyntheticTokens(cfg.vocab_size, seq, seed=0, batch_size=batch))
+    return [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+            for _ in range(n)]
+
+
+def drive_train(arch: str, cut: dict, steps: int, M: int, dev) -> dict:
+    """One full-width training run: ``steps`` steps of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens of ``SyntheticTokens`` (drawn before the timed
+    loop), each timed to its loss read; then one profiled step.  Holds
+    every loss and grad norm finite, the first loss near ln V and the last
+    ``TRAIN_DROP`` below it."""
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_trainer
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    t0 = time.perf_counter()
+    model, step, state = build_trainer(cfg, dev, TRAIN_LR, steps, M, seed=0)
+    torch.cuda.synchronize()
+    init_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    batches = _token_batches(cfg, steps + 1, TRAIN_BATCH, TRAIN_SEQ, dev)
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, lrs, walls = [], [], [], []
+    for batch in batches[:steps]:
+        t0 = time.perf_counter()
+        met = step(state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(met["grad_norm"]))
+        lrs.append(float(met["lr"]))
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(state, batches[steps])["loss"])
+        wall = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    wall_med = statistics.median(walls)
+    ln_v = math.log(cfg.vocab_size)
+    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               microbatches=M, remat=cfg.remat, steps=steps, init_s=init_s,
+               data_s=data_s, losses=losses, grad_norms=norms, lrs=lrs,
+               step_wall_s=wall_med, step_walls_s=walls,
+               tokens_s=TRAIN_BATCH * TRAIN_SEQ / wall_med,
+               peak_mem_gb=peak / 1e9, ln_vocab=ln_v,
+               profile=_device_rows(prof, wall, f"train step {cfg.name}",
+                                    kinds=True))
+    del model, step, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train {cfg.name}: a loss or grad norm is not "
+                             f"finite: {losses}, {norms}")
+    if not ln_v - 0.5 <= losses[0] <= ln_v + 2:
+        raise AssertionError(f"train {cfg.name}: first loss {losses[0]} "
+                             f"outside [ln V - 0.5, ln V + 2] = "
+                             f"[{ln_v - 0.5}, {ln_v + 2}]")
+    if losses[-1] > losses[0] - TRAIN_DROP:
+        raise AssertionError(f"train {cfg.name}: last loss {losses[-1]} not "
+                             f"{TRAIN_DROP} below the first {losses[0]}")
+    return row
+
+
+def train_cross_check(dev) -> dict:
+    """``TRAIN_XDEV``: the same f32 masters and batches trained on the
+    card and on the CPU, each trainer built as ``launch.train.run`` builds
+    it; the largest deviations of the losses, grad norms and trained
+    changes, each against its limit."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import build_trainer
+    x = TRAIN_XDEV
+    out = {}
+    for arch in x["archs"]:
+        cfg = dataclasses.replace(get_smoke_config(arch), remat=True)
+        runs = {}
+        for where in ("cpu", dev):
+            model, step, state = build_trainer(cfg, where, x["lr"],
+                                               x["steps"], x["M"], seed=0)
+            if where != "cpu":
+                model.load_state_dict(runs["cpu"][0])
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+            mets = [step(state, b) for b in _token_batches(
+                cfg, x["steps"], x["batch"], x["seq"], where)]
+            runs[str(where)] = (init, model, mets)
+        (w0, cpu, cm), (init, gpu, gm) = runs["cpu"], runs[str(dev)]
+        for k, v in init.items():
+            if not torch.equal(v.cpu(), w0[k]):
+                raise AssertionError(f"train xdev {arch}: {k} differs at init")
+        row = {}
+        for key in ("loss", "grad_norm"):
+            dev_rel = max(abs(float(a[key]) - float(b[key])) / abs(float(a[key]))
+                          for a, b in zip(cm, gm))
+            row[f"{key}_rel_dev"] = dev_rel
+            if dev_rel > TRAIN_XDEV_RTOL:
+                raise AssertionError(f"train xdev {arch}: {key} relative "
+                                     f"deviation {dev_rel} > {TRAIN_XDEV_RTOL}")
+        worst = (0.0, "")
+        for (name, a), b in zip(cpu.named_parameters(), gpu.parameters()):
+            d_cpu = a.detach() - w0[name]
+            d_gpu = b.detach().cpu() - w0[name]
+            worst = max(worst, (float((d_gpu - d_cpu).norm() / d_cpu.norm()),
+                                name))
+        row["trained_change_dev"], row["trained_change_worst"] = worst
+        if worst[0] > TRAIN_XDEV_DW:
+            raise AssertionError(f"train xdev {arch}: {worst[1]}'s trained "
+                                 f"change deviates by {worst[0]} > "
+                                 f"{TRAIN_XDEV_DW}")
+        row["losses_gpu"] = [float(m["loss"]) for m in gm]
+        out[arch] = row
+    return out
+
+
+def train_resume(dev) -> dict:
+    """``launch.train.run`` at granite-8b-smoke on the card: 10 steps with a
+    checkpoint every 5, then a run to 14 steps resumes from step 10 and
+    returns 4 losses (``tests/test_train_loop.py``'s
+    ``test_checkpoint_restart_continues``)."""
+    import argparse
+    import math
+    import tempfile
+    from repro_torch.launch.train import run
+    with tempfile.TemporaryDirectory() as d:
+        base = dict(arch="granite-8b-smoke", batch=8, seq=32, lr=2e-3,
+                    seed=0, microbatches=1, data="local", ckpt_dir=d,
+                    ckpt_every=5, resume=True, log_every=100,
+                    feedback_every=5, crash_consumer_at=-1, device=str(dev))
+        first = run(argparse.Namespace(**base, steps=10))
+        second = run(argparse.Namespace(**base, steps=14))
+    row = dict(first=len(first["losses"]), resumed=len(second["losses"]),
+               losses=first["losses"] + second["losses"])
+    if row["first"] != 10 or row["resumed"] != 4 or not all(
+            math.isfinite(v) for v in row["losses"]):
+        raise AssertionError(f"train resume: {row}")
+    return row
+
+
+def train_guard(dev) -> dict:
+    """Under grad the kernels refuse: a train step under
+    ``attention_impl="pallas"``, and each model kernel's wrapper called
+    with an input that requires grad, raise ``RuntimeError`` on the card;
+    under ``no_grad`` the same calls launch."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models.sharding import ModelContext
+    from repro_torch.optim import AdamW
+    cfg = get_smoke_config("granite-8b")
+    model, _, state = build_trainer(cfg, dev, 1e-3, 1, 1, seed=0)
+    step = build_train_step(model, AdamW(decayed=model.decayed()),
+                            ModelContext(attention_impl="pallas"))
+    batch = _token_batches(cfg, 1, 2, 64, dev)[0]
+    refused = []
+    try:
+        step(state, batch)
+    except RuntimeError as e:
+        if "forward-only" not in str(e):
+            raise
+        refused.append("train step")
+    g = torch.Generator(dev).manual_seed(0)
+    r = lambda *sh: torch.randn(*sh, generator=g, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)
+    calls = {
+        "rmsnorm": (lambda a, b: ops.rmsnorm(a, b), (r(4, 128), r(128))),
+        "flash_attention": (lambda q, k, v: ops.flash_attention(
+            q, k, v, pos, pos), (r(1, 64, 2, 64), r(1, 64, 1, 64),
+                                 r(1, 64, 1, 64))),
+        "flash_decode": (lambda q, k, v: ops.flash_decode(
+            q, k, v, torch.tensor([40], device=dev)),
+            (r(1, 2, 64), r(1, 64, 1, 64), r(1, 64, 1, 64))),
+        "ssd_state_scan": (ops.ssd_state_scan, (
+            r(1, 2, 2, 16, 16), -r(1, 2, 2).abs(), r(1, 2, 64, 16),
+            -r(1, 2, 64, 2).abs())),
+    }
+    for name, (fn, args) in calls.items():
+        try:
+            fn(args[0].requires_grad_(), *args[1:])
+        except RuntimeError as e:
+            if "forward-only" not in str(e):
+                raise
+            refused.append(name)
+        with torch.no_grad():
+            fn(*args)
+    torch.cuda.synchronize()
+    if refused != ["train step", *calls]:
+        raise AssertionError(f"train guard: only {refused} refused grad")
+    return dict(refused=refused)
+
+
+def drive_train_phase(dev, done) -> dict:
+    """The train phase: every kernel's launches counted from 0 before it
+    and read after (all 0: training runs the plain paths, as the
+    reference's does), the full-width runs, the GPU-against-CPU check,
+    the entry point's resume and the kernels' guard."""
+    _reset_launches()
+    for arch, cut, steps, M in TRAIN_RUNS:
+        print("train:", json.dumps(drive_train(arch, cut, steps, M, dev)),
+              flush=True)
+        done(f"train {arch}")
+    print("train cross-check:", json.dumps(train_cross_check(dev)))
+    print("train resume:", json.dumps(train_resume(dev)))
+    done("train cross-check and resume")
+    counts = _launches()
+    if any(counts.values()):
+        raise AssertionError(f"train: kernel launches {counts}, want none")
+    print("train guard:", json.dumps(train_guard(dev)))
+    done("train guard")
+    return counts
 
 
 def serve(arch: str, dev, done, walk, walk_dec=None) -> tuple:
@@ -2466,6 +2759,7 @@ def main() -> int:
     done("profiles")
     by_path.update(serve("granite-8b", dev, done, walk_layers, walk_decode))
     by_path.update(serve("zamba2-7b", dev, done, walk_ssd))
+    by_path["train"] = drive_train_phase(dev, done)
     print("phase seconds:", json.dumps(phase_s))
     for name, row in kernels.items():
         row["launches"] = sum(c.get(name, 0) for c in by_path.values())

@@ -29,6 +29,17 @@
   device="cuda")``, ``launch.steps.build_prefill_step`` and
   ``launch.serve.generate``, with flash attention as a hand-written CUDA
   kernel (``ModelContext(attention_impl="pallas")``).
+* Training of the dense and hybrid families: ``launch.train.run`` (and
+  ``python -m repro_torch.launch.train``) on ``data.SyntheticTokens``,
+  with ``build_model(cfg, device, trainable=True)`` (f32 masters),
+  ``launch.train.build_trainer``, ``optim.AdamW`` (decaying
+  ``model.decayed()``, the reference's rule in its layout),
+  ``optim.cosine_warmup``, ``launch.steps.build_train_step``
+  (microbatched, remat per ``cfg.remat``) and ``checkpoint``'s
+  atomic, async checkpointer; ``optim.compressed_pod_mean`` is the int8
+  error-feedback gradient exchange.  Training runs autograd through the
+  plain paths, as the reference's does: the hand-written kernels are
+  forward-only and raise under grad.
 
 The package imports ``torch`` and NumPy only.
 """

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.flash_attention import NEG_INF, softcap
 
 #: head dims the CUDA kernels are built for
@@ -220,6 +221,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     caches in place and stops at each request's ``pos``.  ``pos`` is
     cast to int32 here (a no-op when it already is)."""
     _check(q, k_cache, v_cache, pos, window)
+    refuse_grad("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, pos, window=window,
                                 logit_cap=logit_cap, scale=scale)

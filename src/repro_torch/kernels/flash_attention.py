@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
+
 #: additive mask value of the reference (never -inf: see the kernel source)
 NEG_INF = -1e30
 #: head dims the CUDA kernels are built for
@@ -178,6 +180,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cast to int32 here, once per call (a no-op when the caller already
     holds int32)."""
     _check(q, k, v, q_pos, k_pos, window)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                    window=window, logit_cap=logit_cap,

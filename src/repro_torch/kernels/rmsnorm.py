@@ -15,6 +15,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,6 +66,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6
     (rows, D) without a copy, e.g. ``x[:, -1:]``); the kernel reads them
     in place."""
     _check(x, w)
+    refuse_grad("rmsnorm", x, w)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
     if x.device.type != "cuda":

@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
+
 #: largest SSM head dim and state size the CUDA kernel takes
 KERNEL_MAX_DIM = 64
 
@@ -109,6 +111,7 @@ def ssd_state_scan(states: torch.Tensor, totals: torch.Tensor,
     current device) hd and N are at most :data:`KERNEL_MAX_DIM`; the
     kernel reads the inputs in place."""
     _check(states, totals, C, cum)
+    refuse_grad("ssd_state_scan", states, totals, C, cum)
     if states.device.type == "cpu":
         return ssd_state_scan_ref(states, totals, C, cum)
     if states.device.type != "cuda":

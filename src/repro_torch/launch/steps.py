@@ -1,16 +1,80 @@
-"""Serve / prefill step factories of the port, the counterparts of the
-reference's ``repro.launch.steps`` (its train step is a later slice).
+"""Train / serve step factories of the port, the counterparts of the
+reference's ``repro.launch.steps``.
 
+train_step: gradient-accumulation microbatching (the per-arch
+  ``microbatches`` knob is the main memory lever), f32 master weights with
+  bf16 casts inside the model, AdamW update; the model's weights and the
+  optimiser state are updated in place.  The reference scans the
+  microbatches with ``lax.scan``; here a loop runs ``backward`` once per
+  microbatch.
 serve_step: one decode step against the KV cache (updated in place);
 prefill_step: full forward returning last-position logits.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.models import zoo
 from repro_torch.models.sharding import ModelContext
 from repro_torch.models.zoo import LM
+from repro_torch.optim.adamw import AdamW
+
+
+def build_loss_fn(model: LM, ctx: Optional[ModelContext]):
+    def loss_fn(batch: dict) -> torch.Tensor:
+        return zoo.loss(model, batch, ctx)
+    return loss_fn
+
+
+def build_train_step(model: LM, optimizer: AdamW,
+                     ctx: Optional[ModelContext],
+                     microbatches: Optional[int] = None):
+    """``train_step(opt_state, batch) -> {"loss", "grad_norm", "lr"}``
+    (0-d tensors on the model's device), after the reference's: the batch
+    (B, ...) is cut into ``M = microbatches or cfg.microbatches``
+    microbatches (M, B/M, ...), each microbatch's gradient is added into
+    the f32 ``.grad`` of each master weight (autograd's accumulation,
+    from zero: the reference's ``gacc + g``), the summed loss and the
+    gradients are divided by M, and ``optimizer.update`` updates the
+    weights and ``opt_state`` in place.
+
+    The model holds f32 masters that require grad (``build_model(...,
+    trainable=True)``), and the optimizer carries the model's decayed set
+    (``AdamW(decayed=model.decayed())``)."""
+    M = microbatches or model.cfg.microbatches
+    params = dict(model.named_parameters())
+    loss_fn = build_loss_fn(model, ctx)
+
+    def train_step(opt_state: dict, batch: dict) -> dict:
+        for p in params.values():
+            p.grad = None
+        if M > 1:
+            mbatch = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])
+                      for k, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=model.device)
+            for i in range(M):
+                mb_loss = loss_fn({k: v[i] for k, v in mbatch.items()})
+                mb_loss.backward()
+                loss = loss + mb_loss.detach()
+            with torch.no_grad():
+                for p in params.values():
+                    p.grad.div_(M)
+            loss = loss / M
+        else:
+            loss = loss_fn(batch)
+            loss.backward()
+            loss = loss.detach()
+        grads = {n: p.grad for n, p in params.items()}
+        _, _, metrics = optimizer.update(grads, opt_state, params)
+        for p in params.values():
+            p.grad = None
+        return {"loss": loss, **metrics}
+
+    return train_step
 
 
 def build_serve_step(model: LM, ctx: ModelContext):

@@ -34,7 +34,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssm_scan import ssd_state_scan_ref
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import ModelContext
-from repro_torch.models.transformer import _weight
+from repro_torch.models.transformer import _weight, weight_kinds
 
 CHUNK = 256
 
@@ -62,7 +62,9 @@ def ssd_chunk_terms(x, dt, A, B, C, chunk: int = CHUNK):
     The (Q, Q) decay matrix is built in (Bb, nc, nh, Q, Q) layout, so the
     intra-chunk product is one batched matmul with no copy of it; each
     element is the reference's.  The exponent is masked before ``exp``,
-    as there."""
+    as there.  When autograd records (grad enabled and an input requires
+    grad) the matrix is built out of place, which autograd needs;
+    otherwise in place, which keeps prefill's memory at one matrix."""
     Bb, S, nh, hd = x.shape
     N = B.shape[-1]
     if S % chunk:
@@ -84,9 +86,13 @@ def ssd_chunk_terms(x, dt, A, B, C, chunk: int = CHUNK):
     M = cum_h[..., :, None] - cum_h[..., None, :]        # (Bb,nc,nh,Q,Q)
     upper = torch.ones((chunk, chunk), dtype=torch.bool,
                        device=x.device).triu(1)
-    M.masked_fill_(upper, -1e30).exp_()
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)     # (Bb,nc,Q,Q)
-    M.mul_(scores[:, :, None])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        M = torch.exp(M.masked_fill(upper, -1e30)) * scores[:, :, None]
+    else:
+        M.masked_fill_(upper, -1e30).exp_()
+        M.mul_(scores[:, :, None])
     xdt = xc * dtc[..., None]                            # (Bb,nc,Q,nh,hd)
     y_intra = torch.matmul(M, xdt.transpose(2, 3)).transpose(2, 3)
     del M
@@ -141,27 +147,26 @@ def ssd_decode_step(x, dt, A, B, C, state):
 class Mamba2(nn.Module):
     """One Mamba2 mixer (the reference's ``mamba2_mixer`` and its
     ``init_mamba2_params``); parameter names are the reference's keys.
-    ``in_proj``, ``conv`` and ``out_proj`` are stored in bf16 (the
-    reference's cast at use) and cast to the activation dtype at use, so
-    a ``.float()`` copy computes in f32; the norms, ``A_log``, ``D`` and
-    ``dt_bias`` are f32."""
+    ``in_proj``, ``conv`` and ``out_proj`` are stored in bf16 to serve
+    (the reference's cast at use) or as f32 masters to train
+    (``trainable``), and cast to the activation dtype at use; the norms,
+    ``A_log``, ``D`` and ``dt_bias`` are f32."""
 
-    def __init__(self, cfg: ArchConfig, device):
+    def __init__(self, cfg: ArchConfig, device, trainable: bool = False):
         super().__init__()
         D, N, K = cfg.d_model, cfg.ssm_state, cfg.conv_kernel
         self.cfg = cfg
         self.d_in = cfg.ssm_expand * D
         self.nh = self.d_in // cfg.ssm_head_dim
-        f32 = torch.float32
-        self.norm = _weight(D, device=device, dtype=f32)
-        self.in_proj = _weight(D, 2 * self.d_in + 2 * N + self.nh,
-                               device=device)
-        self.conv = _weight(K, self.d_in + 2 * N, device=device)
-        self.A_log = _weight(self.nh, device=device, dtype=f32)
-        self.D = _weight(self.nh, device=device, dtype=f32)
-        self.dt_bias = _weight(self.nh, device=device, dtype=f32)
-        self.out_norm = _weight(self.d_in, device=device, dtype=f32)
-        self.out_proj = _weight(self.d_in, D, device=device)
+        mm, vec = weight_kinds(device, trainable)
+        self.norm = _weight(D, **vec)
+        self.in_proj = _weight(D, 2 * self.d_in + 2 * N + self.nh, **mm)
+        self.conv = _weight(K, self.d_in + 2 * N, **mm)
+        self.A_log = _weight(self.nh, **vec)
+        self.D = _weight(self.nh, **vec)
+        self.dt_bias = _weight(self.nh, **vec)
+        self.out_norm = _weight(self.d_in, **vec)
+        self.out_proj = _weight(self.d_in, D, **mm)
 
     @torch.no_grad()
     def reset_ssm_params(self) -> None:

@@ -8,12 +8,21 @@ the layers run in a Python loop.  gemma2's local/global alternation
 ``cfg.window``, odd layers 0 (global).
 
 Activations are bf16, as the reference hard-codes (``_input_embeds``).
-Matmul weights are stored in bf16 and norm weights in f32: the reference
-keeps f32 master weights and casts each matmul weight to the activation
-dtype on the fly (``.astype(x.dtype)``), so storing the bf16 cast is the
-same arithmetic.  Weights keep the reference orientation (``x @ w``,
-``(in, out)``), so carrying them over (:func:`params_from_jax`) is a copy
-and a cast.  This slice serves: no parameter requires a gradient.
+The reference keeps f32 master weights and casts each matmul weight and
+the embedding table to the activation dtype where it is used
+(``.astype(x.dtype)``); the port does the same (``w.to(x.dtype)``).  For
+serving (the default), the matmul weights are stored in bf16 and frozen:
+the cast is then a no-op and storing the bf16 cast is the same
+arithmetic.  For training, ``trainable=True`` gives every weight as an
+f32 master that requires grad, and the gradient flows through the cast
+into f32.  Norm weights are f32 either way.
+Weights keep the reference orientation (``x @ w``, ``(in, out)``), so
+carrying them over (:func:`params_from_jax`, and back,
+:func:`params_to_numpy`) is a copy and a cast.
+
+Under grad, ``cfg.remat`` recomputes each of the reference's checkpoint
+units in backward (:func:`checkpointed`): each layer, or each gemma2
+local/global pair.
 
 Under ``attention_impl="pallas"`` every norm runs the fused RMSNorm
 kernel and decode the flash decode kernel, beside flash attention.  The
@@ -24,11 +33,12 @@ frontends and the xLSTM family are later slices of the port.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -36,42 +46,78 @@ from repro_torch.models.sharding import ModelContext
 
 #: standard deviation of the random init, the reference's ``dense_init``
 INIT_SCALE = 0.02
+#: activation dtype, which the reference hard-codes
+ACT_DTYPE = torch.bfloat16
 
 
-def _weight(*shape: int, device, dtype=torch.bfloat16) -> nn.Parameter:
+def _weight(*shape: int, device, dtype, trainable: bool) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=trainable)
+
+
+def weight_kinds(device, trainable: bool) -> tuple:
+    """:func:`_weight`'s keywords for the matmul weights and the embedding
+    (bf16 and frozen to serve, f32 masters that require grad to train) and
+    for the norms and the SSM vectors (f32 either way)."""
+    mm = dict(device=device, trainable=trainable,
+              dtype=torch.float32 if trainable else torch.bfloat16)
+    return mm, dict(mm, dtype=torch.float32)
+
+
+def checkpointed(cfg: ArchConfig, fn: Callable, *args):
+    """``fn(*args)``, recomputed in backward (``torch.utils.checkpoint``,
+    non-reentrant) when the reference would remat it: ``cfg.remat``,
+    and only while grad is enabled.  The reference's other policy,
+    ``remat_policy="dots"`` (save the matmul outputs), is not ported
+    (ROADMAP §1)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy='dots' is not ported yet (ROADMAP "
+            "§1); use remat_policy='full'")
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def decayed_names(model: nn.Module, stacked: tuple) -> frozenset:
+    """Names of ``model``'s parameters that the reference's AdamW decays:
+    its leaves of rank >= 2, where each parameter whose name starts with
+    one of ``stacked`` is one layer of a leaf stacked on a leading layer
+    axis (one rank more than the port's tensor)."""
+    return frozenset(n for n, p in model.named_parameters()
+                     if p.dim() + n.startswith(stacked) >= 2)
 
 
 class Block(nn.Module):
     """One pre-norm transformer block (the reference's
     ``transformer_block``); parameter names are the reference's keys."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    def __init__(self, cfg: ArchConfig, device: torch.device,
+                 trainable: bool = False):
         super().__init__()
         D, H, KV, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                             cfg.hd, cfg.d_ff)
         self.cfg = cfg
-        f32 = torch.float32
-        self.attn_norm = _weight(D, device=device, dtype=f32)
-        self.wq = _weight(D, H * hd, device=device)
-        self.wk = _weight(D, KV * hd, device=device)
-        self.wv = _weight(D, KV * hd, device=device)
-        self.wo = _weight(H * hd, D, device=device)
-        self.mlp_norm = _weight(D, device=device, dtype=f32)
-        self.wi = _weight(D, 2 * ff, device=device)
-        self.wo_mlp = _weight(ff, D, device=device)
+        mm, norm = weight_kinds(device, trainable)
+        self.attn_norm = _weight(D, **norm)
+        self.wq = _weight(D, H * hd, **mm)
+        self.wk = _weight(D, KV * hd, **mm)
+        self.wv = _weight(D, KV * hd, **mm)
+        self.wo = _weight(H * hd, D, **mm)
+        self.mlp_norm = _weight(D, **norm)
+        self.wi = _weight(D, 2 * ff, **mm)
+        self.wo_mlp = _weight(ff, D, **mm)
         if cfg.post_norms:
-            self.post_attn_norm = _weight(D, device=device, dtype=f32)
-            self.post_mlp_norm = _weight(D, device=device, dtype=f32)
+            self.post_attn_norm = _weight(D, **norm)
+            self.post_mlp_norm = _weight(D, **norm)
 
     def _attn_proj(self, x: torch.Tensor, positions: torch.Tensor):
         B, S, _ = x.shape
         cfg = self.cfg
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q = (x @ self.wq).reshape(B, S, H, hd)
-        k = (x @ self.wk).reshape(B, S, KV, hd)
-        v = (x @ self.wv).reshape(B, S, KV, hd)
+        q = (x @ self.wq.to(x.dtype)).reshape(B, S, H, hd)
+        k = (x @ self.wk.to(x.dtype)).reshape(B, S, KV, hd)
+        v = (x @ self.wv.to(x.dtype)).reshape(B, S, KV, hd)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
         return q, k, v
@@ -93,7 +139,7 @@ class Block(nn.Module):
         a = L.attention(q, k, v, positions, positions, causal=True,
                         window=window, logit_cap=cfg.attn_logit_softcap,
                         ctx=ctx)
-        a = a.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo
+        a = a.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo.to(x.dtype)
         if cfg.post_norms:
             a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
         return self._mlp(x + a, ctx)
@@ -111,7 +157,7 @@ class Block(nn.Module):
         _cache_write(v_l, v[:, 0], pos)
         a = L.decode_attention(q[:, 0], k_l, v_l, pos, window=window,
                                logit_cap=cfg.attn_logit_softcap, ctx=ctx)
-        a = a.reshape(B, cfg.n_heads * cfg.hd) @ self.wo
+        a = a.reshape(B, cfg.n_heads * cfg.hd) @ self.wo.to(x.dtype)
         if cfg.post_norms:
             a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
         return self._mlp(x + a[:, None], ctx)
@@ -132,9 +178,15 @@ def _cache_write(cache_l: torch.Tensor, kv_t: torch.Tensor,
 
 class TransformerLM(nn.Module):
     """Dense decoder-only LM.  Weights start at zero: fill them with
-    :meth:`init_params` or :func:`params_from_jax`."""
+    :meth:`init_params` or :func:`params_from_jax`.  ``trainable`` gives
+    f32 masters that require grad (to train); by default the matmul
+    weights and the embedding are stored in bf16 and frozen (to serve)."""
 
-    def __init__(self, cfg: ArchConfig, device: "torch.device | str"):
+    #: parameter-name prefixes of the layers the reference stacks
+    STACKED = ("blocks.",)
+
+    def __init__(self, cfg: ArchConfig, device: "torch.device | str",
+                 trainable: bool = False):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(
@@ -148,13 +200,13 @@ class TransformerLM(nn.Module):
         device = torch.device(device)
         self.cfg = cfg
         self.device = device
-        self.embed = _weight(cfg.vocab_size, cfg.d_model, device=device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
+        mm, norm = weight_kinds(device, trainable)
+        self.embed = _weight(cfg.vocab_size, cfg.d_model, **mm)
+        self.blocks = nn.ModuleList(Block(cfg, device, trainable)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = _weight(cfg.d_model, device=device,
-                                  dtype=torch.float32)
+        self.final_norm = _weight(cfg.d_model, **norm)
         if not cfg.tie_embeddings:
-            self.lm_head = _weight(cfg.d_model, cfg.vocab_size, device=device)
+            self.lm_head = _weight(cfg.d_model, cfg.vocab_size, **mm)
         #: static attention window of each layer (0 = global)
         self.windows = tuple(
             cfg.window if cfg.attn_pattern == "local_global" and i % 2 == 0
@@ -163,30 +215,46 @@ class TransformerLM(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
 
+    def decayed(self) -> frozenset:
+        """Names of the parameters AdamW decays, by the reference's rule in
+        its layout (:func:`decayed_names`): every block parameter, the
+        embedding and ``lm_head``; not ``final_norm``."""
+        return decayed_names(self, self.STACKED)
+
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "TransformerLM":
         """Random weights on the model's device: every matmul weight and
-        the embedding N(0, 0.02^2), drawn in place in bf16 from
-        ``generator`` (on the same device); norm weights 0, i.e. a scale
-        of 1, as the reference's init."""
+        the embedding (the tensors of rank 2) N(0, 0.02^2), drawn in place
+        in their storage dtype from ``generator`` (on the same device);
+        norm weights 0, i.e. a scale of 1, as the reference's init."""
         for p in self.parameters():
-            if p.dtype == torch.bfloat16:
+            if p.dim() >= 2:
                 p.normal_(0.0, INIT_SCALE, generator=generator)
             else:
                 p.zero_()
         return self
 
+    def _unit(self, x: torch.Tensor, layers: range, positions: torch.Tensor,
+              ctx: ModelContext) -> torch.Tensor:
+        for i in layers:
+            x = self.blocks[i](x, self.windows[i], positions, ctx)
+        return x
+
     def forward(self, tokens: torch.Tensor, ctx: Optional[ModelContext] = None,
                 last_only: bool = False) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V), or (B, 1, V) when
         ``last_only`` (prefill: the vocab head for the last position
-        only).  Positions are 0..S-1, made once as int32."""
+        only).  Positions are 0..S-1, made once as int32.  The layers run
+        in the reference's checkpoint units: one layer, or a gemma2
+        local/global pair."""
         ctx = ctx or ModelContext()
-        x = L.embed(tokens, self.embed)
+        x = L.embed(tokens, self.embed.to(ACT_DTYPE))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        for blk, window in zip(self.blocks, self.windows):
-            x = blk(x, window, positions, ctx)
+        per = 2 if self.cfg.attn_pattern == "local_global" else 1
+        for i in range(0, self.cfg.n_layers, per):
+            x = checkpointed(self.cfg, self._unit, x, range(i, i + per),
+                             positions, ctx)
         if last_only:
             x = x[:, -1:]
         x = L.rmsnorm(x, self.final_norm, ctx=ctx)
@@ -210,7 +278,7 @@ class TransformerLM(nn.Module):
         Returns (logits (B, V), cache); the cache is updated in place (the
         reference returns a new one)."""
         ctx = ctx or ModelContext()
-        x = L.embed(tokens[:, None], self.embed)
+        x = L.embed(tokens[:, None], self.embed.to(ACT_DTYPE))
         for i, (blk, window) in enumerate(zip(self.blocks, self.windows)):
             x = blk.decode(x, cache["k"][i], cache["v"][i], pos, window, ctx)
         x = L.rmsnorm(x[:, 0], self.final_norm, ctx=ctx)
@@ -219,15 +287,17 @@ class TransformerLM(nn.Module):
 
 @torch.no_grad()
 def params_from_jax(tree: Mapping, cfg: ArchConfig,
-                    device: "torch.device | str" = "cuda") -> TransformerLM:
+                    device: "torch.device | str" = "cuda",
+                    trainable: bool = False) -> TransformerLM:
     """A :class:`TransformerLM` holding the reference's parameters.
 
     ``tree`` is the reference's params pytree as numpy arrays:
     ``embed`` (V, D), ``blocks`` with each entry stacked (L, ...),
-    ``final_norm`` (D,) and ``lm_head`` (D, V) unless tied.  Matmul
-    weights are rounded to bf16 (round to nearest even, the reference's
-    on-the-fly cast), norm weights kept in f32."""
-    model = TransformerLM(cfg, device)
+    ``final_norm`` (D,) and ``lm_head`` (D, V) unless tied.  To serve,
+    matmul weights and the embedding are rounded to bf16 (round to
+    nearest even, the reference's on-the-fly cast); ``trainable`` copies
+    the reference's f32 masters exactly.  Norm weights are kept in f32."""
+    model = TransformerLM(cfg, device, trainable)
     blocks = tree["blocks"]
     want = {name for name, _ in model.blocks[0].named_parameters()}
     if set(blocks) != want:
@@ -247,3 +317,22 @@ def params_from_jax(tree: Mapping, cfg: ArchConfig,
 def _host(a) -> torch.Tensor:
     """A CPU tensor holding a (writable) copy of the array ``a``."""
     return torch.from_numpy(np.array(a))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A float32 numpy copy of ``t`` (exact for f32 weights)."""
+    return t.detach().float().cpu().numpy()
+
+
+def params_to_numpy(model: TransformerLM) -> dict:
+    """The inverse of :func:`params_from_jax`: the model's weights as
+    float32 numpy arrays in the reference's tree, each block parameter
+    stacked on the layer axis."""
+    tree = {"embed": _numpy(model.embed),
+            "blocks": {name: np.stack([_numpy(getattr(b, name))
+                                       for b in model.blocks])
+                       for name, _ in model.blocks[0].named_parameters()},
+            "final_norm": _numpy(model.final_norm)}
+    if not model.cfg.tie_embeddings:
+        tree["lm_head"] = _numpy(model.lm_head)
+    return tree

@@ -95,6 +95,35 @@ def test_port_exports_the_reference_names(name):
         assert got.__module__.startswith("repro_torch.")
 
 
+#: (subpackage, name) of the training slice: the reference's
+#: ``repro.<subpackage>`` exports, mirrored by ``repro_torch.<subpackage>``
+TRAIN_SLICE_NAMES = (
+    ("data", "SyntheticTokens"), ("optim", "AdamW"),
+    ("optim", "clip_by_global_norm"), ("optim", "cosine_warmup"),
+    ("optim", "compressed_pod_mean"), ("optim", "quantize_int8"),
+    ("optim", "dequantize_int8"), ("checkpoint", "AsyncCheckpointer"),
+    ("checkpoint", "latest_checkpoint"), ("checkpoint", "restore_checkpoint"),
+    ("checkpoint", "save_checkpoint"))
+
+
+@pytest.mark.parametrize("sub,name", TRAIN_SLICE_NAMES,
+                         ids=[f"{s}.{n}" for s, n in TRAIN_SLICE_NAMES])
+def test_port_exports_the_reference_training_names(sub, name):
+    import importlib
+    want = getattr(importlib.import_module(f"repro.{sub}"), name)
+    got = getattr(importlib.import_module(f"repro_torch.{sub}"), name)
+    assert type(got) is type(want) and got.__name__ == want.__name__
+    assert got.__module__.startswith(f"repro_torch.{sub}.")
+
+
+def test_import_scan_covers_the_training_modules():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("data/tokens.py", "optim/adamw.py", "optim/schedule.py",
+                "optim/grad_compression.py", "checkpoint/checkpointer.py",
+                "launch/train.py", "launch/steps.py", "kernels/_grad.py"):
+        assert f"src/repro_torch/{rel}" in scanned, rel
+
+
 def test_workloads_match_reference():
     assert set(port_wl.WORKLOADS) == set(ref_wl.WORKLOADS)
     for name, w in ref_wl.WORKLOADS.items():
