@@ -78,8 +78,9 @@ tensor-core kernel):
   1, 8 and 64 tenants of 64 messages each, its curves and headline;
 * the availability crossover — ``availability_crossover`` at the
   reference's defaults (single-fault ingress outages of 5, 20, 40, 80
-  and 120 s on dts and mss, 20 solo cohort cells), nothing lost in any
-  cell, its curves, crossover duration and headline printed;
+  and 120 s on dts and mss, 20 solo cohort cells) but 1024 messages a
+  cell (``AVAIL_MSGS``), nothing lost in any cell, its curves, crossover
+  duration and headline printed;
 * the heap parity phase — the card's per-cohort engine held to the
   port's heap engine (``engine="heap"``, the one-event-per-hop model the
   reference's parity bands are defined against, which runs on the
@@ -137,7 +138,24 @@ tensor-core kernel):
   checkpoint; and no model kernel launched in the phase, as training
   runs the plain paths.  Then the kernels' forward-only guard: a train
   step under ``attention_impl="pallas"`` and each model kernel called
-  with an input that requires grad raise.
+  with an input that requires grad raise;
+* the stream phase — training on the streamed edge-to-HPC data plane
+  (edge producers publishing Dstream payloads into the real-time broker,
+  a consumer group assembling token rows, steering feedback, a consumer
+  crash and its redelivery): ``launch.train.run`` with ``--data
+  stream`` at the reference's own test size (granite-8b-smoke, 14 steps
+  of 4 x 16, a crash at step 6, feedback every 5), its losses within
+  [ln V - 0.5, ln V + 2], its ``[fault]`` line printed and the
+  redelivered messages seen again; then granite-8b as the train phase
+  cuts it, built by ``build_trainer``, fed by ``make_stream``'s defaults
+  and driven by ``run``'s own loop, 10 steps with a crash at step 5 and
+  feedback every 2, and one profiled step: step walls before and after
+  the crash beside the train phase's on local data, the wait for each
+  batch, host CPU seconds a step, the device's idle share, peak memory,
+  the producers' rates and the work queues' depths at each feedback;
+  every loss finite and in the band, every row of every batch, read back
+  from the card, a published payload's tokens, and no model kernel
+  launched.
 
 The line before the last holds the kernels' numbers as JSON, and the
 last line the device.  Any failure exits nonzero; without CUDA it exits
@@ -257,6 +275,12 @@ EXP_CAMPAIGN = dict(name="fig6 c64", patterns=("feedback",),
                     params={"engine": "jax", "jax_device_loop": True})
 EXP_TENANTS = (1, 8, 64)
 EXP_TENANT_MSGS = 64
+#: messages a cell of the availability crossover: the reference's 4096
+#: cut to 1024 to keep the smoke's phases near 906 s (the availability
+#: phase took 251.3 s at 4096 in phases of 1021 s, 128.0 s at 2048 in
+#: phases of 945.6 s); the outages still start inside every run and the
+#: crossover stays inside the sweep
+AVAIL_MSGS = 1024
 #: the cells that opt in to the wave program, as the reference's do
 WAVE = dict(engine="jax", jax_device_loop=True)
 
@@ -416,6 +440,23 @@ TRAIN_XDEV = dict(archs=("granite-8b", "zamba2-7b"), steps=3, M=2, batch=4,
                   seq=64, lr=1e-3)
 TRAIN_XDEV_RTOL = 2e-2
 TRAIN_XDEV_DW = 0.3
+#: the stream phase's entry-point run, ``launch.train.run`` at the
+#: reference's own streamed test (``tests/test_train_loop.py``'s
+#: ``test_streamed_training_with_crash_and_feedback``): granite-8b-smoke,
+#: 14 steps of 4 x 16 tokens, a consumer crash at step 6, feedback every 5
+STREAM_RUN = dict(arch="granite-8b-smoke", steps=14, batch=4, seq=16,
+                  lr=2e-3, seed=0, microbatches=1, data="stream",
+                  ckpt_dir="", ckpt_every=50, resume=True, log_every=100,
+                  feedback_every=5, crash_consumer_at=6)
+#: the stream phase's full-width run: the train phase's granite-8b cut
+#: (``TRAIN_RUNS[0]``, ``TRAIN_BATCH`` x ``TRAIN_SEQ``, ``TRAIN_LR``)
+#: on the stream of ``launch.train.make_stream``'s defaults (2 Dstream
+#: producers at 500 msgs/s, 2 consumers): STREAM_STEPS steps, a consumer
+#: crash at step STREAM_CRASH_AT, feedback every STREAM_FEEDBACK_EVERY
+#: steps, then one profiled step.  Its losses lie within the first-loss
+#: band [ln V - 0.5, ln V + 2]: tokens drawn from SHA-256 payloads are
+#: uniform, so there is nothing to learn below ln V
+STREAM_STEPS, STREAM_CRASH_AT, STREAM_FEEDBACK_EVERY = 10, 5, 2
 
 
 def _cuda_ms(fn, n_iter: int, repeats: int = 7) -> float:
@@ -1961,7 +2002,8 @@ def drive_experiment_layer(dev, main_rows: list) -> tuple[dict, dict]:
 def drive_availability(dev) -> tuple[dict, dict]:
     """``availability_crossover`` on the card at the reference's defaults
     (dts and mss, single-fault ingress outages of 5, 20, 40, 80 and
-    120 s, one solo cohort cell per failed host, 20 cells): every cell
+    120 s, one solo cohort cell per failed host, 20 cells) at
+    ``AVAIL_MSGS`` messages a cell: every cell
     ran the cohort engine alone with no pump launch and no confirm left
     withheld, lost nothing and redelivered every duplicate; every point
     feasible with a finite throughput.
@@ -1971,7 +2013,8 @@ def drive_availability(dev) -> tuple[dict, dict]:
     from repro_torch import availability_crossover
     with _recorded_runs() as calls:
         study, wall, counts = _counted(
-            lambda: availability_crossover(device=dev))
+            lambda: availability_crossover(device=dev,
+                                           total_messages=AVAIL_MSGS))
     (results,) = calls
     if (counts.pop("runs") != len(results) or counts.get("pump_assign")
             or counts.pop("withheld")):
@@ -2625,15 +2668,17 @@ def train_guard(dev) -> dict:
     return dict(refused=refused)
 
 
-def drive_train_phase(dev, done) -> dict:
+def drive_train_phase(dev, done) -> tuple[dict, dict]:
     """The train phase: every kernel's launches counted from 0 before it
     and read after (all 0: training runs the plain paths, as the
     reference's does), the full-width runs, the GPU-against-CPU check,
-    the entry point's resume and the kernels' guard."""
+    the entry point's resume and the kernels' guard.  Returns the
+    launches and the full-width runs' rows by arch."""
     _reset_launches()
+    rows = {}
     for arch, cut, steps, M in TRAIN_RUNS:
-        print("train:", json.dumps(drive_train(arch, cut, steps, M, dev)),
-              flush=True)
+        rows[arch] = drive_train(arch, cut, steps, M, dev)
+        print("train:", json.dumps(rows[arch]), flush=True)
         done(f"train {arch}")
     print("train cross-check:", json.dumps(train_cross_check(dev)))
     print("train resume:", json.dumps(train_resume(dev)))
@@ -2643,6 +2688,207 @@ def drive_train_phase(dev, done) -> dict:
         raise AssertionError(f"train: kernel launches {counts}, want none")
     print("train guard:", json.dumps(train_guard(dev)))
     done("train guard")
+    return counts, rows
+
+
+def _cpu_s() -> float:
+    """The host CPU seconds of this process so far, all threads."""
+    import resource
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return r.ru_utime + r.ru_stime
+
+
+def _in_band(losses: list, vocab: int, what: str) -> float:
+    """Every loss finite and within [ln V - 0.5, ln V + 2]; returns ln V."""
+    import math
+    ln_v = math.log(vocab)
+    if not all(math.isfinite(x) and ln_v - 0.5 <= x <= ln_v + 2
+               for x in losses):
+        raise AssertionError(f"{what}: a loss is not finite or lies outside "
+                             f"[ln V - 0.5, ln V + 2] = [{ln_v - 0.5}, "
+                             f"{ln_v + 2}]: {losses}")
+    return ln_v
+
+
+def _hold_redelivery(redelivered, loader, what: str) -> None:
+    """A crash that redelivered messages was seen redelivered."""
+    if redelivered and loader.redeliveries_seen < 1:
+        raise AssertionError(f"{what}: the crash redelivered {redelivered} "
+                             f"messages and the loader saw none")
+
+
+def stream_entry(dev) -> dict:
+    """``launch.train.run`` on the card with ``STREAM_RUN``: 14 losses in
+    the band, the ``[fault]`` line printed, the redeliveries seen."""
+    import argparse
+    import io
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import run
+    out_text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out_text):
+        out = run(argparse.Namespace(**STREAM_RUN, device=str(dev)))
+    wall = time.perf_counter() - t0
+    print(out_text.getvalue(), end="")
+    loader, producers = out["stream"][1], out["stream"][3]
+    row = dict(arch=STREAM_RUN["arch"], wall_s=wall, losses=out["losses"],
+               redelivered=out["redelivered"],
+               redeliveries_seen=loader.redeliveries_seen,
+               messages_consumed=loader.messages_consumed,
+               producers=[dict(id=p.id, sent=p.sent, rejected=p.rejected,
+                               rate=p.rate) for p in producers])
+    what = "stream entry"
+    if len(out["losses"]) != STREAM_RUN["steps"]:
+        raise AssertionError(f"{what}: {len(out['losses'])} losses")
+    row["ln_vocab"] = _in_band(out["losses"], get_smoke_config(
+        "granite-8b").vocab_size, what)
+    if f"[fault] crashed ingest-0 at step {STREAM_RUN['crash_consumer_at']}" \
+            not in out_text.getvalue():
+        raise AssertionError(f"{what}: no [fault] line")
+    _hold_redelivery(out["redelivered"], loader, what)
+    return row
+
+
+def _rows_published(recs: list, producers, vocab: int, seq: int) -> dict:
+    """Every row of every batch the trainer received, read back from the
+    card, against ``tokens_from_payload`` of the producers' payloads,
+    recomputed here (a payload's seed is salted per process): seeds
+    searched in order up to each producer's ``sent`` until every row is
+    found.  Returns the rows, the distinct rows and the payloads
+    searched."""
+    import numpy as np
+    from repro_torch.core.workloads import DSTREAM, tokens_from_payload
+    rows = []
+    for rec in recs:
+        tok = rec["batch"]["tokens"].cpu().numpy()
+        lab = rec["batch"]["labels"].cpu().numpy()
+        if tok.shape != (TRAIN_BATCH, seq) or not (
+                lab[:, :-1] == tok[:, 1:]).all():
+            raise AssertionError(f"stream: step {rec['step']}'s batch is "
+                                 f"not a shifted row of {seq + 1} tokens")
+        rows += [r.tobytes() for r in np.concatenate(
+            [tok, lab[:, -1:]], axis=1).astype(np.int32)]
+    missing, searched = set(rows), 0
+    for i in range(max(p.sent for p in producers)):
+        for p in producers:
+            if i < p.sent and missing:
+                searched += 1
+                missing.discard(tokens_from_payload(DSTREAM.payload(
+                    hash(p.id) % 10 ** 6 + i), vocab, seq + 1).tobytes())
+        if not missing:
+            break
+    if missing:
+        raise AssertionError(f"stream: {len(missing)} of {len(set(rows))} "
+                             f"rows equal no published payload's tokens")
+    return dict(rows=len(rows), distinct=len(set(rows)),
+                payloads_searched=searched)
+
+
+def drive_stream(dev, local_wall=None) -> dict:
+    """The full-width streamed run: granite-8b as the train phase cuts it,
+    built by ``build_trainer``, fed by ``make_stream`` and driven by
+    ``train_loop`` (``run``'s loop: its crash, its feedback), each step
+    timed to its loss read with the host CPU it took; then one profiled
+    step.  Holds every loss and grad norm finite, the losses in the band,
+    every row a published payload's tokens, the redeliveries seen, and
+    the crashed consumer's thread ended (the port's one difference from
+    the reference's loader).  ``local_wall`` is the train phase's median
+    step on local data."""
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import (
+        build_trainer, close_stream, make_stream, train_loop)
+    arch, cut, _, M = TRAIN_RUNS[0]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    t0 = time.perf_counter()
+    model, step, state = build_trainer(cfg, dev, TRAIN_LR, STREAM_STEPS + 1,
+                                       M, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    stream = make_stream(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    broker, loader, _, producers = stream
+    loop = train_loop(model, step, state, iter(loader), 0, STREAM_STEPS + 1,
+                      stream, STREAM_CRASH_AT, STREAM_FEEDBACK_EVERY)
+    recs, walls, cpus = [], [], []
+    try:
+        for _ in range(STREAM_STEPS + 1):
+            t0, c0 = time.perf_counter(), _cpu_s()
+            if len(recs) < STREAM_STEPS:
+                recs.append(next(loop))
+            else:
+                peak = torch.cuda.max_memory_allocated()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    recs.append(next(loop))
+            walls.append(time.perf_counter() - t0)
+            cpus.append(_cpu_s() - c0)
+        crashed = loader._threads[0]
+        crashed.join(timeout=2.0)
+        if crashed.is_alive():
+            raise AssertionError(f"stream {cfg.name}: the crashed consumer's "
+                                 f"thread runs on")
+    finally:
+        close_stream(stream)
+    wall = walls.pop()
+    cpus.pop()
+    losses = [r["loss"] for r in recs]
+    norms = [float(r["metrics"]["grad_norm"]) for r in recs]
+    redelivered = recs[STREAM_CRASH_AT]["redelivered"]
+    k = STREAM_CRASH_AT
+    row = dict(
+        arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=M, steps=STREAM_STEPS, crash_at=k,
+        feedback_every=STREAM_FEEDBACK_EVERY, init_s=init_s, losses=losses,
+        grad_norms=norms, step_walls_s=walls,
+        step_wall_s=statistics.median(walls),
+        step_wall_before_crash_s=statistics.median(walls[:k]),
+        step_wall_after_crash_s=statistics.median(walls[k:]),
+        local_step_wall_s=(local_wall if local_wall is not None
+                           else "not measured"),
+        tokens_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(walls),
+        next_batch_wait_s=[r["wait_s"] for r in recs],
+        cpu_s_per_step=cpus,
+        cpu_s_per_step_before_crash=statistics.median(cpus[:k]),
+        cpu_s_per_step_after_crash=statistics.median(cpus[k:]),
+        peak_mem_gb=peak / 1e9,
+        feedback=[r["feedback"] for r in recs if "feedback" in r],
+        producers=[dict(id=p.id, sent=p.sent, rejected=p.rejected,
+                        rate=p.rate) for p in producers],
+        messages_consumed=loader.messages_consumed, redelivered=redelivered,
+        redeliveries_seen=loader.redeliveries_seen,
+        depths_at_end={q: broker.queue_depth(q) for q in loader.queues},
+        profile=_device_rows(prof, wall, f"stream step {cfg.name}",
+                             kinds=True))
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"stream {cfg.name}: a loss or grad norm is not "
+                             f"finite: {losses}, {norms}")
+    row["ln_vocab"] = _in_band(losses, cfg.vocab_size, f"stream {cfg.name}")
+    row["integrity"] = _rows_published(recs, producers, cfg.vocab_size,
+                                       TRAIN_SEQ)
+    _hold_redelivery(redelivered, loader, f"stream {cfg.name}")
+    del model, step, state, recs, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def drive_stream_phase(dev, done, local_wall=None) -> dict:
+    """The stream phase: every kernel's launches counted from 0 before it
+    and read after (all 0: the streamed trainer runs the plain paths),
+    the entry point at the reference's test size, then the full-width
+    streamed run."""
+    _reset_launches()
+    print("stream entry:", json.dumps(stream_entry(dev)), flush=True)
+    done("stream entry")
+    print("stream:", json.dumps(drive_stream(dev, local_wall)), flush=True)
+    done("stream granite-8b")
+    counts = _launches()
+    if any(counts.values()):
+        raise AssertionError(f"stream: kernel launches {counts}, want none")
     return counts
 
 
@@ -2759,7 +3005,9 @@ def main() -> int:
     done("profiles")
     by_path.update(serve("granite-8b", dev, done, walk_layers, walk_decode))
     by_path.update(serve("zamba2-7b", dev, done, walk_ssd))
-    by_path["train"] = drive_train_phase(dev, done)
+    by_path["train"], train_rows = drive_train_phase(dev, done)
+    by_path["stream"] = drive_stream_phase(
+        dev, done, train_rows["granite-8b"]["step_wall_s"])
     print("phase seconds:", json.dumps(phase_s))
     for name, row in kernels.items():
         row["launches"] = sum(c.get(name, 0) for c in by_path.values())

@@ -1,15 +1,21 @@
-"""Streaming workload definitions (paper Table 1), as the wave path reads
-them: message size and the consumer's per-message processing time.
+"""Streaming workload definitions (paper Table 1): message size, the
+consumer's per-message processing time, and the deterministic payloads
+and token rows the streamed data plane carries.
 
 A framework-free copy of the reference package's workload table, kept
 in this package so that the port stands alone.  Names, defaults and
-values are the reference's.
+values are the reference's, and so are the payloads and token rows, bit
+for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import hashlib
+from typing import Iterator
+
+import numpy as np
 
 KIB = 1024
 MIB = 1024 * 1024
@@ -53,6 +59,32 @@ class Workload:
         if self.consumer_proc_s is not None:
             return self.consumer_proc_s
         return 80e-6 * self.payload_bytes / 16384
+
+    def messages_per_second_at_rate(self, gbps: float | None = None) -> float:
+        """Message rate needed to sustain ``gbps`` (defaults to nominal)."""
+        rate = self.data_rate_gbps if gbps is None else gbps
+        return rate * GBIT / self.message_bits
+
+    def payload(self, seed: int) -> bytes:
+        """Deterministic pseudo-payload of exactly ``payload_bytes`` bytes.
+
+        Uses a counter-mode SHA256 expansion so tests can assert integrity
+        end-to-end without storing real detector data.
+        """
+        out = bytearray()
+        counter = 0
+        stem = f"{self.name}:{seed}".encode()
+        while len(out) < self.payload_bytes:
+            out += hashlib.sha256(stem + counter.to_bytes(8, "little")).digest()
+            counter += 1
+        return bytes(out[: self.payload_bytes])
+
+    def payload_digest(self, seed: int) -> str:
+        return hashlib.sha256(self.payload(seed)).hexdigest()
+
+    def event_stream(self, seed: int, n_messages: int) -> Iterator[bytes]:
+        for i in range(n_messages):
+            yield self.payload(seed * 1_000_003 + i)
 
 
 DSTREAM = Workload(
@@ -106,3 +138,20 @@ def get_workload(name: str) -> Workload:
         raise KeyError(
             f"unknown workload {name!r}; options: {sorted(WORKLOADS)}"
         ) from None
+
+
+def tokens_from_payload(payload: bytes, vocab_size: int, n_tokens: int) -> np.ndarray:
+    """Deterministically map a streamed payload to a token sequence.
+
+    This is the bridge the edge-to-HPC training integration uses: a streamed
+    detector message becomes training tokens.  (Synthetic, but deterministic
+    so a redelivered message yields identical training data, which the
+    fault-tolerance guarantees rest on.)  A payload shorter than
+    ``4 * n_tokens`` bytes is tiled.
+    """
+    raw = np.frombuffer(payload, dtype=np.uint8)
+    if raw.size < n_tokens * 4:
+        reps = int(np.ceil(n_tokens * 4 / max(raw.size, 1)))
+        raw = np.tile(raw, reps)
+    words = raw[: n_tokens * 4].view("<u4").astype(np.int64)
+    return (words % np.int64(vocab_size)).astype(np.int32)

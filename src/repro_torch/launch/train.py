@@ -2,18 +2,23 @@
 reference's ``repro.launch.train``: the same flags and defaults, plus
 ``--device`` (the GPU unless the caller asks for the CPU).
 
-Features exercised here and tested in ``tests/test_torch_train.py``:
-  * the local synthetic pipeline (``--data local``, ``SyntheticTokens``)
+Features exercised here and tested in ``tests/test_torch_train.py`` and
+``tests/test_torch_streaming.py``:
+  * streamed data (edge producers -> broker -> ``StreamingDataLoader``,
+    ``--data stream``) or the local synthetic pipeline (``--data local``,
+    ``SyntheticTokens``)
   * f32 master weights, AdamW on a cosine schedule, microbatched steps
   * checkpoint/restart (async writer, atomic commit, resume-determinism)
+  * steering feedback (work sharing with feedback) every
+    ``--feedback-every`` steps
+  * consumer-crash tolerance (fault injection via ``--crash-consumer-at``)
 
-The streamed data path (``--data stream``: edge producers -> broker ->
-``StreamingDataLoader``, steering feedback, ``--crash-consumer-at``) is
-not ported yet (ROADMAP §1 item 6); asking for it raises.
+The stream's threads run on the host and hand over NumPy batches; each
+batch moves to the model's device on the thread that runs the step.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b-smoke \\
-      --steps 100 --device cpu --ckpt-dir /tmp/ckpt
+      --steps 100 --device cpu --data stream --crash-consumer-at 6
 """
 
 from __future__ import annotations
@@ -27,15 +32,15 @@ import torch
 from repro_torch.checkpoint import (
     AsyncCheckpointer, latest_checkpoint, restore_checkpoint)
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
+from repro_torch.core.workloads import DSTREAM
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.sharding import ModelContext
 from repro_torch.models.zoo import build_model
 from repro_torch.optim import AdamW, cosine_warmup
-
-STREAM_NOT_PORTED = ("the streamed data path (--data stream, "
-                     "--crash-consumer-at) is not ported yet: ROADMAP §1 "
-                     "item 6 (streaming and edge-to-HPC training)")
+from repro_torch.streaming import (
+    WORK_QUEUES, EdgeProducer, RealtimeBroker, SteeringFeedback,
+    StreamingDataLoader)
 
 
 def build_trainer(cfg, device, lr: float, steps: int,
@@ -56,11 +61,85 @@ def build_trainer(cfg, device, lr: float, steps: int,
     return model, train_step, optimizer.init(dict(model.named_parameters()))
 
 
+def make_stream(cfg, batch, seq, n_producers=2, n_consumers=2):
+    """The reference's streamed data plane for ``cfg``: a broker, a
+    loader of ``n_consumers`` consumers assembling ``batch`` x ``seq``
+    batches of Dstream payloads, reply queues for ``n_producers``
+    producers ``edge-i``, started at 500 msgs/s each over the two work
+    queues.  Returns (broker, loader, feedback, producers)."""
+    broker = RealtimeBroker()
+    loader = StreamingDataLoader(
+        broker, DSTREAM, vocab_size=cfg.vocab_size, seq_len=seq,
+        batch_size=batch, n_consumers=n_consumers)
+    fb = SteeringFeedback(broker, [f"edge-{i}" for i in range(n_producers)])
+    producers = []
+    for i in range(n_producers):
+        pid = f"edge-{i}"
+        p = EdgeProducer(
+            broker, DSTREAM,
+            lambda j, i=i: f"work:{(i + j) % 2}",
+            rate_msgs_s=500.0, producer_id=pid,
+            reply_queue=fb.reply_queue(pid))
+        producers.append(p.start())
+    return broker, loader, fb, producers
+
+
+def close_stream(stream) -> None:
+    """Stop the producers and the loader's threads, and close the broker."""
+    for p in stream[3]:
+        p.stop(join=False)
+    stream[1].close()
+
+
+def train_loop(model, train_step, opt_state, batches, start_step: int,
+               steps: int, stream=None, crash_consumer_at: int = -1,
+               feedback_every: int = 10):
+    """The training loop of :func:`run`: steps ``start_step`` to
+    ``steps - 1`` on ``batches`` (NumPy dicts, moved to ``model.device``
+    on this thread).  With a stream, step ``crash_consumer_at`` first
+    crashes ``ingest-0`` (its unacked messages are redelivered) and
+    spawns a new consumer, and every ``feedback_every`` steps each
+    producer is told to slow down when ``work:0`` holds more than 64
+    messages, else to speed up, and polls its reply once.  Yields one
+    record a step: ``step``, ``loss``, ``metrics``, ``batch`` (on the
+    device), ``wait_s`` (the time spent drawing the batch), the crash's
+    ``redelivered`` count, and after a feedback ``feedback``: the work
+    queues' depths at it and each producer's counts and rate after its
+    poll."""
+    for step in range(start_step, steps):
+        rec = dict(step=step)
+        if stream and crash_consumer_at == step:
+            rec["redelivered"] = n = stream[1].crash_consumer("ingest-0")
+            stream[1].add_consumer()
+            print(f"[fault] crashed ingest-0 at step {step}; "
+                  f"{n} messages redelivered; respawned")
+        t0 = time.perf_counter()
+        host = next(batches)
+        rec["wait_s"] = time.perf_counter() - t0
+        rec["batch"] = batch = {k: torch.from_numpy(v).to(model.device)
+                                for k, v in host.items()}
+        rec["metrics"] = metrics = train_step(opt_state, batch)
+        rec["loss"] = float(metrics["loss"])
+        if stream and step % feedback_every == 0:
+            broker, _, fb, producers = stream
+            depths = {q: broker.queue_depth(q) for q in WORK_QUEUES}
+            fb.publish_step(step, rec["loss"],
+                            backpressure=depths["work:0"] > 64)
+            for p in producers:
+                p.poll_feedback(timeout=0.01)
+            rec["feedback"] = dict(
+                step=step, depths=depths,
+                producers=[dict(id=p.id, sent=p.sent, rejected=p.rejected,
+                                rate=p.rate) for p in producers])
+        yield rec
+
+
 def run(args) -> dict:
     """Train ``args.arch`` on ``args.device``; returns {"losses",
-    "final_loss", "model", "opt_state"}."""
-    if args.data == "stream" or args.crash_consumer_at >= 0:
-        raise NotImplementedError(STREAM_NOT_PORTED)
+    "final_loss", "model", "opt_state", "stream", "redelivered"}: the
+    stream (broker, loader, feedback, producers; ``None`` for local
+    data), closed, and the crash's redelivered count (``None`` without
+    one)."""
     cfg = (get_smoke_config(args.arch.removesuffix("-smoke"))
            if args.arch.endswith("-smoke") else get_config(args.arch))
     model, train_step, opt_state = build_trainer(
@@ -77,28 +156,40 @@ def run(args) -> dict:
             model.load_state_dict(params)
             print(f"resumed from {latest} at step {start_step}")
 
-    batches = iter(SyntheticTokens(cfg.vocab_size, args.seq, seed=args.seed,
-                                   batch_size=args.batch))
+    stream = None
+    if args.data == "stream":
+        stream = make_stream(cfg, args.batch, args.seq)
+        batches = iter(stream[1])
+    else:
+        batches = iter(SyntheticTokens(cfg.vocab_size, args.seq,
+                                       seed=args.seed,
+                                       batch_size=args.batch))
     losses = []
+    redelivered = None
     t0 = time.time()
-    for step in range(start_step, args.steps):
-        batch = {k: torch.from_numpy(v).to(model.device)
-                 for k, v in next(batches).items()}
-        metrics = train_step(opt_state, batch)
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            rate = (step - start_step + 1) / (time.time() - t0)
-            print(f"step {step:5d} loss {loss:7.4f} "
-                  f"gnorm {float(metrics['grad_norm']):6.3f} "
-                  f"({rate:.2f} steps/s)", flush=True)
-        if ckpt and step > 0 and step % args.ckpt_every == 0:
-            ckpt.save(step, (model.state_dict(), opt_state))
-    if ckpt:
-        ckpt.save(args.steps, (model.state_dict(), opt_state))
-        ckpt.close()
+    try:
+        for rec in train_loop(model, train_step, opt_state, batches,
+                              start_step, args.steps, stream,
+                              args.crash_consumer_at, args.feedback_every):
+            step, loss = rec["step"], rec["loss"]
+            redelivered = rec.get("redelivered", redelivered)
+            losses.append(loss)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                rate = (step - start_step + 1) / (time.time() - t0)
+                print(f"step {step:5d} loss {loss:7.4f} "
+                      f"gnorm {float(rec['metrics']['grad_norm']):6.3f} "
+                      f"({rate:.2f} steps/s)", flush=True)
+            if ckpt and step > 0 and step % args.ckpt_every == 0:
+                ckpt.save(step, (model.state_dict(), opt_state))
+        if ckpt:
+            ckpt.save(args.steps, (model.state_dict(), opt_state))
+            ckpt.close()
+    finally:
+        if stream:
+            close_stream(stream)
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "model": model, "opt_state": opt_state}
+            "model": model, "opt_state": opt_state, "stream": stream,
+            "redelivered": redelivered}
 
 
 def main() -> None:

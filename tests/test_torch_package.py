@@ -124,6 +124,33 @@ def test_import_scan_covers_the_training_modules():
         assert f"src/repro_torch/{rel}" in scanned, rel
 
 
+def test_import_scan_covers_the_streaming_modules():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    ref = sorted(p.name for p in (ROOT / "src" / "repro" / "streaming")
+                 .glob("*.py"))
+    assert ref == ["__init__.py", "fault_tolerance.py", "feedback.py",
+                   "ingest.py", "producers.py", "rtbroker.py"]
+    for name in ref:
+        assert f"src/repro_torch/streaming/{name}" in scanned, name
+    assert "chip_probes/stream_phase.py" in scanned
+
+
+def test_port_exports_the_reference_streaming_names():
+    import repro.streaming
+    import repro_torch.streaming
+    assert repro_torch.streaming.__all__ == repro.streaming.__all__
+    for name in repro.streaming.__all__:
+        want = getattr(repro.streaming, name)
+        got = getattr(repro_torch.streaming, name)
+        assert type(got) is type(want)
+        if isinstance(want, type):
+            assert got.__name__ == want.__name__
+            assert got.__module__ == want.__module__.replace(
+                "repro.", "repro_torch.", 1)
+        else:
+            assert got == want, name
+
+
 def test_workloads_match_reference():
     assert set(port_wl.WORKLOADS) == set(ref_wl.WORKLOADS)
     for name, w in ref_wl.WORKLOADS.items():

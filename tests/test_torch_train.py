@@ -445,13 +445,6 @@ def test_checkpoint_restart_continues(tmp_path):
     assert len(out2["losses"]) == 4
 
 
-@pytest.mark.parametrize("over", [dict(data="stream"),
-                                  dict(crash_consumer_at=6)])
-def test_streamed_training_is_not_ported(over):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_run(_args(**over))
-
-
 def test_train_defaults_to_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
