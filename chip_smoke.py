@@ -11,18 +11,22 @@ kernel against its plain PyTorch version on the card, with its time
 beside its bound and, where one PyTorch call computes the same function,
 that call's time: the pump bitwise; flash attention at the tolerances of
 ``tests/test_kernels.py`` and, row by row, against its plain version in
-float32, on granite-8b's, zamba2-7b's and gemma2-9b's shapes and the edge
-cases, each on the kernel its route rule picks (the tensor-core kernel
-for bf16 at hd 64, 112 and 128), and both kernels timed at granite's and
-zamba2's shapes with the registers and CTAs an SM they get; RMSNorm at both models' widths; flash decode on both models' full
-caches, gemma2's window, ragged positions and one long request, with
-the cache past each position overwritten, and at the four serving
-shapes (granite 128 x 2048 and 32 x 8192, zamba2 32 x 4096 and 8 x 16384)
-its time beside SDPA's, the bytes bound, the share of the memory rate,
-the registers, CTAs an SM and waves of its grid (``decode shape:``
-lines); the SSD state scan at zamba2's prefill and a 32768-token
-request, timed with its registers and CTAs an SM beside the bound and
-the bytes floor.
+float32, on granite-8b's, zamba2-7b's, qwen3-moe-30b-a3b's (GQA 8:1),
+moonshot-v1-16b-a3b's (MHA at hd 128), musicgen-large's (bf16 MHA at
+hd 64) and gemma2-9b's shapes and the edge cases, each timed on the
+kernel its route rule picks (the tensor-core kernel for bf16 at hd 64,
+112 and 128), and both kernels timed at granite's and zamba2's shapes
+with the registers and CTAs an SM they get; RMSNorm at every served
+model's width (2048 to 7168), each timed; flash decode on the models'
+full caches, gemma2's window, ragged positions and one long request,
+with the cache past each position overwritten, and at the eight serving
+shapes (granite 128 x 2048 and 32 x 8192, zamba2 32 x 4096 and 8 x
+16384, qwen3 128 x 1024, moonshot 32 x 1024, musicgen 32 x 4096,
+pixtral 128 x 2048) its time beside SDPA's, the bytes bound, the share
+of the memory rate, the registers, CTAs an SM and waves of its grid
+(``decode shape:`` lines); the SSD state scan at zamba2's prefill and a
+32768-token request, timed with its registers and CTAs an SM beside the
+bound and the bytes floor.
 Then the paths, each with every kernel's launches counted from 0 just
 before it and read just after (every flash-decode launch on the
 tensor-core kernel):
@@ -123,6 +127,34 @@ tensor-core kernel):
   on the model's own inputs through the first macro-block; a profile of
   one prefill; ``generate``; decode steps against 32 x 4096 and 8 x 16384
   cached tokens with flash decode, each beside one plain step;
+* serving qwen3-moe-30b-a3b at full width and depth (48 layers of 128
+  experts, top-8, 61.1 GB of random bf16 weights), after zamba2's
+  memory is freed: the prefill step on 2 x 2048 tokens (``moe_dense``:
+  every expert for every token, as the reference's ``moe_block`` runs
+  without a mesh; flash attention at GQA 8:1 once a layer, RMSNorm for
+  every norm), its logits and next tokens held as granite's; the
+  prefill walked layer by layer (``MOE_DEPTHS``), each layer also held
+  on one input with its expert flips explained by rounding
+  (``_hold_moe_layer``); a profile of one prefill with ``moe_block``'s
+  and ``moe_dense``'s share of its device time read from the trace;
+  ``generate``; decode steps against 128 x 1024 cached tokens with flash
+  decode, beside one einsum step and one step with the second plain
+  decode attention, and that step walked layer by layer.  Routing is
+  discontinuous, so the held streams and steps take the einsum's (or
+  the reference's) experts at every layer, and the natural ones, with
+  the requests whose experts flipped, are printed beside them;
+* serving moonshot-v1-16b-a3b likewise (64 experts, top-6, and 2 shared
+  experts, the one path that runs them; 57.8 GB): prefill 2 x 2048,
+  decode 32 x 1024, both walked;
+* serving musicgen-large (48 layers, 6.5 GB; the audio stub frontend):
+  the prefill step on 4 x 4096 frame embeddings (``{"embeds"}``), flash
+  attention on the tensor-core kernel at bf16 hd 64, logits held as
+  granite's; a profile; ``generate`` on codebook tokens; decode steps
+  against 32 x 4096 cached tokens (51.5 GB of K/V);
+* serving pixtral-12b (40 layers, d 5120, 24.5 GB; the vision stub
+  frontend): the prefill step on 4 requests of 1024 patch embeddings
+  before 3072 text tokens, held as granite's; a profile; ``generate``;
+  decode steps against 128 x 2048 cached tokens (42.9 GB of K/V);
 * the train phase — training as ``launch/train.run`` drives it, each
   trainer from its ``build_trainer`` (``SyntheticTokens(seed=0)``, f32
   masters, AdamW on ``cosine_warmup`` with the model's decayed set, the
@@ -326,11 +358,17 @@ QUICKSTART_TABLE = {
 }
 
 #: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
-#: causal, window, logit cap).  The first is granite-8b's prefill shape
-#: and is the one timed; zamba2-7b's (hd 112) is timed beside it.
+#: causal, window, logit cap), each timed.  The first is granite-8b's
+#: prefill shape and is the one in the kernels line; zamba2-7b's (hd 112)
+#: is timed beside it on both routes.  The MoE and audio models' prefill
+#: shapes follow: GQA 8:1 (qwen3), MHA at hd 128 (moonshot), bf16 MHA at
+#: hd 64 (musicgen); pixtral's is granite's.
 ATTN_CASES = (
     ("granite-8b prefill", "bfloat16", 4, 4096, 4096, 32, 8, 128, True, 0, 0.0),
     ("zamba2-7b prefill", "bfloat16", 4, 4096, 4096, 32, 32, 112, True, 0, 0.0),
+    ("qwen3-moe-30b-a3b prefill", "bfloat16", 2, 2048, 2048, 32, 4, 128, True, 0, 0.0),
+    ("moonshot-v1-16b-a3b prefill", "bfloat16", 2, 2048, 2048, 16, 16, 128, True, 0, 0.0),
+    ("musicgen-large prefill", "bfloat16", 4, 4096, 4096, 32, 32, 64, True, 0, 0.0),
     ("granite-8b B=1", "bfloat16", 1, 4096, 4096, 32, 8, 128, True, 0, 0.0),
     ("gemma2-9b local", "bfloat16", 1, 8192, 8192, 16, 8, 256, True, 4096, 50.0),
     ("f32 hd=64", "float32", 2, 1024, 1024, 8, 2, 64, True, 0, 0.0),
@@ -340,11 +378,15 @@ ATTN_CASES = (
     ("ragged S", "bfloat16", 1, 1000, 1000, 8, 2, 128, True, 0, 0.0),
     ("ragged f32 window softcap", "float32", 1, 777, 777, 4, 2, 64, True, 100, 30.0),
 )
-#: RMSNorm checks: (case, dtype, rows, D).  The first (granite-8b's
-#: prefill rows) is timed; zamba2's out_norm over d_in 7168 beside it.
+#: RMSNorm checks: (case, dtype, rows, D), each timed.  The first
+#: (granite-8b's prefill rows) is in the kernels line, with zamba2's
+#: out_norm over d_in 7168 and the library's times beside it.
 RMS_CASES = (
     ("granite-8b prefill", "bfloat16", 16384, 4096),
     ("zamba2-7b out_norm", "bfloat16", 16384, 7168),
+    ("qwen3-moe-30b-a3b prefill", "bfloat16", 4096, 2048),
+    ("musicgen-large prefill", "bfloat16", 16384, 2048),
+    ("pixtral-12b prefill", "bfloat16", 16384, 5120),
     ("zamba2-7b decode", "bfloat16", 32, 3584),
     ("f32", "float32", 1000, 3584),
 )
@@ -357,6 +399,8 @@ DECODE_CASES = (
     ("zamba2-7b 32x4096", "bfloat16", 32, 4096, 32, 32, 112, 0, 0.0, False),
     ("gemma2-9b local 8x8192", "bfloat16", 8, 8192, 16, 8, 256, 4096, 50.0, True),
     ("zamba2-7b 1x65536", "bfloat16", 1, 65536, 32, 32, 112, 0, 0.0, False),
+    ("qwen3-moe-30b-a3b 128x1024", "bfloat16", 128, 1024, 32, 4, 128, 0, 0.0, False),
+    ("musicgen-large 32x4096 ragged", "bfloat16", 32, 4096, 32, 32, 64, 0, 0.0, True),
     ("f32 3x512 ragged", "float32", 3, 512, 8, 2, 64, 0, 0.0, True),
 )
 #: flash decode timed at the serving paths' shapes, every request at its
@@ -367,6 +411,10 @@ DECODE_SHAPES = (
     ("granite-8b 32x8192", 32, 8192, 32, 8, 128),
     ("zamba2-7b 32x4096", 32, 4096, 32, 32, 112),
     ("zamba2-7b 8x16384", 8, 16384, 32, 32, 112),
+    ("qwen3-moe-30b-a3b 128x1024", 128, 1024, 32, 4, 128),
+    ("moonshot-v1-16b-a3b 32x1024", 32, 1024, 16, 16, 128),
+    ("musicgen-large 32x4096", 32, 4096, 32, 32, 64),
+    ("pixtral-12b 128x2048", 128, 2048, 32, 8, 128),
 )
 #: SSD state scan checks: (case, B, nc, nh, hd, N, Q).  The first
 #: (zamba2-7b's prefill, 4 x 4096 tokens) is timed.
@@ -387,8 +435,44 @@ DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 16, 16
 #: decode_32k's 128 x 32768 (618 GB); zamba2: 131072 tokens (24.4 GB of
 #: K/V over 13 applications, beside 4.76 GB of f32 SSM state at 32
 #: requests) cut from decode_32k (781 GB of K/V)
+#: the MoE, audio and VLM serving phases, each model at full width and
+#: depth: ``prefill`` (requests, positions) under ``pallas``, then
+#: ``decode_ctx`` (requests, cache length); ``walk``: the prefill and the
+#: decode step at context walked layer by layer (the MoE models).
+#: qwen3-moe-30b-a3b, 61.1 GB of bf16 weights (48 layers, 128 experts,
+#: top-8): prefill 2 x 2048, since ``moe_dense`` materialises (E, T, 2F)
+#: and (E, T, D) a layer, 128·4096·1536·2 B = 1.6 GB and 128·4096·2048·2 B
+#: = 2.15 GB at 4096 tokens, 6.4 and 8.6 GB at 4 x 4096, which does not
+#: fit beside the weights; decode 128 x 1024 = 131072 cached tokens, K/V
+#: 48·4·128·2·2 B = 98304 B a token, 12.9 GB (decode_32k's 128 x 32768
+#: would be 412 GB)
+QWEN3_SERVE = dict(prefill=(2, 2048), decode_ctx=((128, 1024),), walk=True)
+#: moonshot-v1-16b-a3b, 57.8 GB (64 experts, top-6, 2 shared: the only
+#: path with shared experts): prefill 2 x 2048 for the same reasons;
+#: decode 32 x 1024 = 32768 tokens at 48·16·128·2·2 B = 393216 B, 12.9 GB
+MOONSHOT_SERVE = dict(prefill=(2, 2048), decode_ctx=((32, 1024),),
+                      walk=True)
+#: musicgen-large, 6.5 GB (audio stub: frame embeddings in, ``{"embeds"}``):
+#: prefill 4 x 4096, flash attention's tensor-core route at bf16 hd 64;
+#: decode 32 x 4096 = 131072 tokens at 393216 B, 51.5 GB
+MUSICGEN_SERVE = dict(prefill=(4, 4096), decode_ctx=((32, 4096),),
+                      walk=False)
+#: pixtral-12b, 24.5 GB (vision stub): prefill 4 requests of 1024 patch
+#: embeddings + 3072 text tokens; decode 128 x 2048 = 262144 tokens (as
+#: granite's) at 40·8·128·2·2 B = 163840 B, 42.9 GB
+PIXTRAL_SERVE = dict(prefill=(4, 4096), decode_ctx=((128, 2048),),
+                     walk=False)
+FAMILY_SERVE = {"qwen3-moe-30b-a3b": QWEN3_SERVE,
+                "moonshot-v1-16b-a3b": MOONSHOT_SERVE,
+                "musicgen-large": MUSICGEN_SERVE,
+                "pixtral-12b": PIXTRAL_SERVE}
+#: prefill (requests, positions) of each served model
+PREFILL = {"granite-8b": (PREFILL_BATCH, PREFILL_LEN),
+           "zamba2-7b": (PREFILL_BATCH, PREFILL_LEN),
+           **{a: c["prefill"] for a, c in FAMILY_SERVE.items()}}
 DECODE_CTX = {"granite-8b": ((128, 2048), (32, 8192)),
-              "zamba2-7b": ((32, 4096), (8, 16384))}
+              "zamba2-7b": ((32, 4096), (8, 16384)),
+              **{a: c["decode_ctx"] for a, c in FAMILY_SERVE.items()}}
 DECODE_CTX_STEPS = 5
 #: decode steps profiled after ``generate``
 PROFILE_STEPS = 4
@@ -403,6 +487,16 @@ PROFILE_STEPS = 4
 PREFILL_RTOL = 1e-1
 SHALLOW_RTOL = 2e-2
 DEPTHS = (1, 2, 4, 9, 18, 36)
+#: the MoE models' walks (48 layers).  Their routing is discontinuous: an
+#: expert flips wherever a token's k-th and (k+1)-th router logits lie
+#: closer than two streams' difference, and a flipped expert moves that
+#: token's residual by far more than rounding does, so deep logits of two
+#: equally correct streams may differ by more than the limits.  The held
+#: streams therefore take the lead plain stream's experts at every layer
+#: (``_routing``), and each layer's own choice is held on one input
+#: (``_hold_moe_layer``); the natural streams are printed beside them,
+#: with the requests whose experts flipped
+MOE_DEPTHS = (1, 2, 4, 12, 24, 48)
 #: a kernel against its plain version in float32 on the same values,
 #: element by element: twice the largest error of one rounding of the
 #: output to bf16 (2^-8 relative), plus float32 accumulation of at most
@@ -697,7 +791,9 @@ def check_flash(dev) -> dict:
     """The flash-attention kernels against ``flash_attention_ref`` on the
     card at every ``ATTN_CASES`` shape, each on the route the wrapper's
     rule picks (every bf16 case at hd 64, 112 or 128 must run the
-    tensor-core kernel); at granite-8b's and zamba2-7b's prefill shapes,
+    tensor-core kernel), each timed beside its bound (its bytes, and the
+    visible pairs' operations at the dtype's peak); at granite-8b's and
+    zamba2-7b's prefill shapes,
     for each route (the FMA kernel reached with a q that TMA cannot
     address), the time a launch, the registers and CTAs an SM that the
     compiler and the occupancy API report, the row-limit share and the
@@ -727,8 +823,16 @@ def check_flash(dev) -> dict:
         if flash_attention.tc_launches - n_tc != (route == "tc"):
             raise AssertionError(f"flash_attention on {case}: tc_launches "
                                  f"moved by {flash_attention.tc_launches - n_tc}")
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+            + 2 * pos.numel() * 4
+        flops = 4 * B * H * hd * _visible_pairs(pos, causal, window)
         rows.append(dict(case=case, route=route,
-                         **_hold(got, q, k, v, pos, kw, case)))
+                         **_hold(got, q, k, v, pos, kw, case),
+                         ms=_cuda_ms(lambda: flash_attention(
+                             q, k, v, pos, pos, **kw), 3, 3),
+                         bound_ms=_bound(nbytes, flops, BF16_FLOPS if
+                                         dtype == "bfloat16" else F32_FLOPS
+                                         )["bound_ms"]))
         del got
         if len(timed) < 2:
             timed.append((q, k, v, pos, kw))
@@ -788,7 +892,8 @@ def check_flash(dev) -> dict:
 def check_rmsnorm(dev) -> dict:
     """The RMSNorm kernel against ``rmsnorm_ref`` on the card at every
     ``RMS_CASES`` shape (``tests/test_kernels.py``'s tolerances: bf16
-    2e-2, f32 1e-5); at the first its time, the plain version's, one
+    2e-2, f32 1e-5), each timed beside its bound; at the first its time,
+    the plain version's, one
     ``F.rms_norm`` call's (weight ``1 + w`` in x's dtype, made outside
     the timing, so that it takes its fused path) and the bound; at
     zamba2's out_norm width the kernel's and the library's times."""
@@ -809,7 +914,11 @@ def check_rmsnorm(dev) -> dict:
                 and bool((diff <= tol + tol * want.abs()).all())):
             raise AssertionError(f"rmsnorm differs from its plain version on "
                                  f"{case}: {diff.max().item()} (tol {tol})")
-        rows.append(dict(case=case, max_abs_err=diff.max().item(), tol=tol))
+        rows.append(dict(case=case, max_abs_err=diff.max().item(), tol=tol,
+                         ms=_cuda_ms(lambda: rmsnorm(x, w), 20, 3),
+                         bound_ms=_bound(2 * x.numel() * x.element_size()
+                                         + 4 * D, 5 * x.numel(),
+                                         F32_FLOPS)["bound_ms"]))
         if len(timed) < 2:
             timed.append((x, w))
     res = {}
@@ -1040,22 +1149,37 @@ def build_lm(arch: str, dev):
     return model, time.perf_counter() - t0
 
 
+def _prefill_batch(cfg, B: int, S: int, dev):
+    """One prefill's input from seed 1: token ids (B, S), or, for the
+    audio and VLM frontends, ``zoo.make_batch``'s frame embeddings or
+    patch embeddings before ids (S positions in all), without labels."""
+    import torch
+    from repro_torch.models import zoo
+    g = torch.Generator(dev).manual_seed(1)
+    if cfg.family in ("audio", "vlm"):
+        batch = zoo.make_batch(cfg, g, B, S)
+        del batch["labels"]
+        return batch
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
 def drive_prefill(model, init_s: float) -> tuple:
     """Serving path, prefill: ``build_prefill_step(last_only=True)`` under
-    ``attention_impl="pallas"`` on ``PREFILL_BATCH`` x ``PREFILL_LEN``
-    tokens, warm, timed ``WALL_REPEATS`` times, every kernel's launches
-    counted from 0 for each; then the same prefill with each plain
-    attention (``reference``: every layer plain; ``blocked``), compared.
-    Returns the row, the tokens and one run's launches."""
+    ``attention_impl="pallas"`` on the model's ``PREFILL`` requests x
+    positions (``_prefill_batch``), warm, timed ``WALL_REPEATS`` times,
+    every kernel's launches counted from 0 for each; then the same
+    prefill with each plain attention (``reference``: every layer plain;
+    ``blocked``), compared.  Returns the row, the batch and one run's
+    launches."""
     import torch
     from repro_torch.kernels import KERNELS
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models.sharding import ModelContext
     cfg, dev = model.cfg, model.device
     n_params = sum(p.numel() for p in model.parameters())
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
-                           generator=torch.Generator(dev).manual_seed(1),
-                           device=dev, dtype=torch.int32)
+    B, S = PREFILL[cfg.name]
+    tokens = _prefill_batch(cfg, B, S, dev)
     step = build_prefill_step(model, ModelContext(attention_impl="pallas"),
                               last_only=True)
     step(tokens)
@@ -1077,7 +1201,7 @@ def drive_prefill(model, init_s: float) -> tuple:
                                  f"{want['flash_attention']} flash-attention "
                                  f"launches on the tensor-core kernel")
     peak = torch.cuda.max_memory_allocated()
-    if logits.shape != (PREFILL_BATCH, cfg.vocab_size) or not bool(
+    if logits.shape != (B, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, "
                              f"finite {bool(torch.isfinite(logits).all())}")
@@ -1087,10 +1211,10 @@ def drive_prefill(model, init_s: float) -> tuple:
     ref, blk = other["reference"], other["blocked"]
     scale = ref.abs().max().item()
     wall = statistics.median(walls)
-    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-               params=n_params, batch=PREFILL_BATCH, prompt=PREFILL_LEN,
+    row = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+               d_model=cfg.d_model, params=n_params, batch=B, prompt=S,
                init_s=init_s, wall_s=wall, wall_s_runs=walls,
-               tokens_s=PREFILL_BATCH * PREFILL_LEN / wall,
+               tokens_s=B * S / wall,
                launches=counts[0], tc_launches=tc, peak_mem_gb=peak / 1e9,
                logits_max_abs=scale,
                dev_vs_reference=(logits.float() - ref).abs().max().item(),
@@ -1123,10 +1247,12 @@ def _argmax_readings(got, ref, blk) -> list:
 
 def check_prefill(row: dict) -> None:
     """The kernels' prefill logits against both plain paths': within
-    ``PREFILL_RTOL`` of max |logit|; and the same next token as both on
-    every request whose reference top-two gap exceeds the plain paths'
-    spread there.  A closer request is a tie within rounding (two plain
-    paths already pick different tokens on such requests), so it is
+    ``PREFILL_RTOL`` of max |logit|; and on every request whose reference
+    top-two gap exceeds the plain paths' spread there, the same next token
+    as both.  Where the two plain paths themselves pick different tokens
+    on such a request (a gap above the spread may lie below twice it, and
+    each path's logits move by up to the spread), the kernels' token must
+    be one of theirs.  A closer request is a tie within rounding, so it is
     printed, not held; at least one request must be held."""
     scale = row["logits_max_abs"]
     for impl in ("reference", "blocked"):
@@ -1143,11 +1269,18 @@ def check_prefill(row: dict) -> None:
                              f"gap exceeds the plain paths' spread, so no "
                              f"next token is held: {row['requests']}")
     for r in held:
-        if not r["kernels"] == r["reference"] == r["blocked"]:
-            raise AssertionError(f"{row['arch']} prefill request "
-                                 f"{r['request']}: next tokens differ "
-                                 f"(gap {r['gap']} > spread "
-                                 f"{r['plain_spread']}): {r}")
+        _hold_next_token(r["kernels"], r["reference"], r["blocked"],
+                         f"{row['arch']} prefill request {r['request']} "
+                         f"(gap {r['gap']} > spread {r['plain_spread']}): "
+                         f"{r}")
+
+
+def _hold_next_token(got: int, want: int, want2: int, what: str) -> None:
+    """A held request's next token: equal to both plain paths' where they
+    agree, one of theirs where they do not."""
+    if got != want if want == want2 else got not in (want, want2):
+        raise AssertionError(f"{what}: next tokens differ, kernels {got}, "
+                             f"plain {want} and {want2}")
 
 
 def _last_logits(model, x):
@@ -1158,30 +1291,210 @@ def _last_logits(model, x):
     return L.unembed(h, model.head(), model.cfg.final_logit_softcap)[:, 0].float()
 
 
-def walk_layers(model, tokens) -> dict:
-    """One granite prefill walked layer by layer three times over, each
-    stream carrying its own residual: under ``pallas`` (the kernels), with
-    the reference attention and with the blocked attention.  At every
-    layer the flash kernel is held (``_hold``) on the reference stream's
-    own q, k, v.  At each of ``DEPTHS`` the three streams' last-position
-    logits are compared, over max |logit| of the reference stream: how
-    the spread between equally correct paths grows with depth.  After the
-    first layer the kernels must lie within ``SHALLOW_RTOL`` of each plain
-    path, at every depth within ``PREFILL_RTOL``.  These launches are
-    checks, not the main path's."""
+def _hold_moe_layer(blk, x1: dict, ctxs: dict) -> dict:
+    """An MoE layer held on one input: ``x1`` holds, under ``"pallas"``
+    and one plain name, the input plus that path's attention output, both
+    from the same input.  Where a token's top-k experts agree, the two
+    block outputs lie within ``SHALLOW_RTOL`` of max |output| (one layer,
+    no amplification); where they differ, the flip is one rounding
+    explains: the plain path's gap between its k-th and (k+1)-th router
+    logits at that token at most twice the largest difference between the
+    two paths' router logits there.  Returns the flips and the
+    readings."""
+    from repro_torch.models import layers as L
+    cfg, k = blk.cfg, blk.cfg.experts_per_token
+    plain = next(n for n in x1 if n != "pallas")
+    logits, out = {}, {}
+    for name, x in x1.items():
+        h = L.rmsnorm(x, blk.mlp_norm, ctx=ctxs[name])
+        logits[name] = h.reshape(-1, cfg.d_model).float() @ blk.router
+        out[name] = blk._mlp(x, ctxs[name]).reshape(-1, cfg.d_model).float()
+    ref = logits[plain]
+    top = {n: lg.topk(k, dim=-1).indices.sort(-1).values
+           for n, lg in logits.items()}
+    same = (top["pallas"] == top[plain]).all(-1)
+    srt = ref.topk(k + 1, dim=-1).values
+    gap = srt[:, k - 1] - srt[:, k]
+    ldiff = (logits["pallas"] - ref).abs().amax(-1)
+    flips = ~same
+    diff = (out["pallas"] - out[plain]).abs().amax(-1)
+    scale = out[plain].abs().max().item()
+    agreed = diff[same].max().item() if bool(same.any()) else 0.0
+    row = dict(tokens=int(same.numel()), flips=int(flips.sum().item()),
+               unexplained_flips=int((flips & (gap > 2 * ldiff)).sum().item()),
+               agreed_rel=agreed / scale,
+               flipped_rel=(diff[flips].max().item() / scale
+                            if bool(flips.any()) else 0.0),
+               router_logit_diff=ldiff.max().item())
+    if row["unexplained_flips"] or not agreed <= SHALLOW_RTOL * scale:
+        raise AssertionError(f"MoE layer on one input, kernels vs {plain}: "
+                             f"{row}")
+    return row
+
+
+def _moe_summary(rows: list) -> dict:
+    """``_hold_moe_layer``'s readings over a walk's layers."""
+    return dict(flips=sum(r["flips"] for r in rows),
+                tokens=sum(r["tokens"] for r in rows),
+                agreed_rel_max=max(r["agreed_rel"] for r in rows),
+                flipped_rel_max=max(r["flipped_rel"] for r in rows),
+                router_logit_diff_max=max(r["router_logit_diff"]
+                                          for r in rows),
+                by_layer=[(r["layer"], r["flips"]) for r in rows])
+
+
+@contextlib.contextmanager
+def _routing(lead: "list | None" = None):
+    """While inside, every MoE layer's own expert choice (``router_probs``'
+    top-k indices, (tokens, k), in call order) is appended to the list
+    this yields.  With ``lead``, the choices recorded by another run of
+    the same layers, each layer's experts are forced to ``lead``'s at that
+    call, with its own probabilities there as gates, renormalised as
+    ``router_probs`` does: the streams then differ only by the rounding of
+    continuous functions, not by discrete expert flips."""
+    import torch
+    from repro_torch.models import moe
+    orig, own = moe.router_probs, []
+
+    def routed(x, w_router, k):
+        gates, idx, probs = orig(x, w_router, k)
+        own.append(idx)
+        if lead is None:
+            return gates, idx, probs
+        idx = lead[len(own) - 1]
+        gates = probs.gather(1, idx)
+        return (gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9),
+                idx, probs)
+
+    moe.router_probs = routed
+    try:
+        yield own
+    finally:
+        moe.router_probs = orig
+
+
+def _flipped(own: list, lead: list, batch: int):
+    """(batch,) bool: the requests with a token whose top-k experts in
+    ``own`` differ from ``lead``'s at any recorded layer."""
+    out = None
+    for a, b in zip(own, lead, strict=True):
+        f = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        f = f.reshape(batch, -1).any(-1)
+        out = f if out is None else out | f
+    return out
+
+
+#: a walk's forced streams: each named after the stream it copies, its
+#: experts forced to the lead stream's at every layer (``_routing``)
+FORCED = "="
+
+
+def _advance(cfg, xs: dict, step: dict, lead: str, flipped: dict) -> dict:
+    """One layer of a walk's streams: ``step[name]`` runs the layer on
+    stream ``name``'s residual, the lead first.  For an MoE model a name
+    ending in ``FORCED`` runs its base stream's step with the experts
+    forced to the lead's at this layer; ``flipped[name]`` (requests) gains
+    those where the stream's own experts, on its own input, left the
+    lead's.  Returns the new residuals."""
+    if not cfg.is_moe:
+        return {n: step[n](x) for n, x in xs.items()}
+    with _routing() as lead_idx:
+        out = {lead: step[lead](xs[lead])}
+    B = xs[lead].shape[0]
+    for name, x in xs.items():
+        if name == lead:
+            continue
+        forced = name.endswith(FORCED)
+        with _routing(lead_idx if forced else None) as own:
+            out[name] = step[name.rstrip(FORCED)](x)
+        f = _flipped(own, lead_idx, B)
+        flipped[name] = f if name not in flipped else flipped[name] | f
+    return out
+
+
+def _depth_point(depth: int, lg: dict, pairs: dict, lead: str,
+                 flipped: dict) -> dict:
+    """The readings at one depth: for each of ``pairs`` (key: the two
+    streams), max |logit difference| over max |logit| of the lead stream,
+    over every request.  With ``flipped`` (an MoE model's natural
+    streams), also the requests where either stream's experts left the
+    lead's at some layer so far, and the reading over the others."""
+    scale = lg[lead].abs().max().item()
+    pt = dict(depth=depth, logits_max_abs=scale)
+    for key, (a, b) in pairs.items():
+        per = (lg[a] - lg[b]).abs().amax(-1)
+        pt[key] = per.max().item() / scale
+        if flipped:
+            f = flipped.get(a, False) | flipped.get(b, False)
+            pt[f"{key}_flipped"] = int(f.sum().item())
+            pt[f"{key}_unflipped"] = (per[~f].max().item() / scale
+                                      if bool((~f).any()) else None)
+            pt[f"{key}_at_max_flipped"] = bool(f[per.argmax()].item())
+    return pt
+
+
+def _hold_curve(curve: list, plains: tuple, what: str) -> None:
+    """A walk's logits by depth: the kernels' stream within
+    ``SHALLOW_RTOL`` of each plain stream after the first layer and
+    within ``PREFILL_RTOL`` at every depth."""
+    for pt in curve:
+        limit = SHALLOW_RTOL if pt["depth"] == 1 else PREFILL_RTOL
+        for o in plains:
+            if not pt[f"flash_vs_{o}"] <= limit:
+                raise AssertionError(
+                    f"{what} after {pt['depth']} layers, kernels vs {o}: "
+                    f"{pt[f'flash_vs_{o}']} of max |logit| > {limit}")
+
+
+def _walk_streams(cfg, names: tuple) -> tuple:
+    """A walk's stream names, the held pairs and the natural pairs.  For
+    a dense model the three natural streams are the held ones.  For an
+    MoE model the kernels' stream and the second plain stream run twice,
+    with their own experts and forced to the lead's (``FORCED``): the
+    forced streams are held, the natural ones printed with their flips."""
+    flash, lead, other = names
+    pair = lambda f, o: {f"flash_vs_{lead}": (f, lead),  # noqa: E731
+                         f"flash_vs_{other}": (f, o),
+                         f"{other}_vs_{lead}": (o, lead)}
+    natural = pair(flash, other)
+    if not cfg.is_moe:
+        return names, natural, {}
+    streams = names + (flash + FORCED, other + FORCED)
+    return streams, pair(flash + FORCED, other + FORCED), natural
+
+
+def walk_layers(model, tokens, depths: tuple = DEPTHS) -> dict:
+    """One prefill walked layer by layer three times over, each stream
+    carrying its own residual: under ``pallas`` (the kernels), with the
+    reference attention and with the blocked attention.  At every layer
+    the flash kernel is held (``_hold``) on the reference stream's own q,
+    k, v, and an MoE layer also on the reference stream's input
+    (``_hold_moe_layer``).  At each of ``depths`` the three streams'
+    last-position logits are compared, over max |logit| of the reference
+    stream: how the spread between equally correct paths grows with
+    depth.  After the first layer the kernels must lie within
+    ``SHALLOW_RTOL`` of each plain path, at every depth within
+    ``PREFILL_RTOL`` (``_hold_curve``).  For an MoE model the held
+    streams take the reference stream's experts at every layer
+    (``_walk_streams``); the natural streams' readings and flips are
+    printed beside them.  These launches are checks, not the main
+    path's."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import layers as L
     from repro_torch.models.sharding import ModelContext
     ctxs = {impl: ModelContext(attention_impl=impl)
             for impl in ("pallas", "reference", "blocked")}
+    streams, held, natural = _walk_streams(
+        model.cfg, ("pallas", "reference", "blocked"))
     pos = torch.arange(tokens.shape[1], device=tokens.device,
                        dtype=torch.int32)
-    cap = model.cfg.attn_logit_softcap
+    cfg = model.cfg
+    cap = cfg.attn_logit_softcap
     worst = dict(max_abs_err=0.0, row_rel_err=0.0, row_limit_used=0.0)
-    curve = []
+    curve, moe_rows, flipped = [], [], {}
     with torch.no_grad():
-        xs = dict.fromkeys(ctxs, L.embed(tokens, model.embed))
+        xs = dict.fromkeys(streams, L.embed(tokens, model.embed))
         for i, (blk, window) in enumerate(zip(model.blocks, model.windows)):
             q, k, v = blk._attn_proj(
                 L.rmsnorm(xs["reference"], blk.attn_norm), pos)
@@ -1190,30 +1503,31 @@ def walk_layers(model, tokens) -> dict:
             r = _hold(got, q, k, v, pos, kw, f"layer {i}'s q, k, v")
             worst = {key: max(val, r[key]) for key, val in worst.items()}
             del got, q, k, v
-            xs = {impl: blk(x, window, pos, ctxs[impl])
-                  for impl, x in xs.items()}
-            if i + 1 not in DEPTHS:
+            if cfg.is_moe:
+                x1 = {n: blk.attend(xs["reference"], window, pos, ctxs[n])
+                      for n in ("pallas", "reference")}
+                moe_rows.append(dict(layer=i,
+                                     **_hold_moe_layer(blk, x1, ctxs)))
+                del x1
+            step = {n: functools.partial(blk, window=window, positions=pos,
+                                         ctx=ctxs[n]) for n in ctxs}
+            xs = _advance(cfg, xs, step, "reference", flipped)
+            if i + 1 not in depths:
                 continue
-            lg = {impl: _last_logits(model, x) for impl, x in xs.items()}
-            scale = lg["reference"].abs().max().item()
-            rel = lambda a, b: (lg[a] - lg[b]).abs().max().item() / scale  # noqa: E731
-            pt = dict(depth=i + 1, logits_max_abs=scale,
-                      flash_vs_reference=rel("pallas", "reference"),
-                      flash_vs_blocked=rel("pallas", "blocked"),
-                      blocked_vs_reference=rel("blocked", "reference"),
-                      argmax={impl: lg[impl].argmax(-1).tolist()
-                              for impl in lg})
+            lg = {n: _last_logits(model, x) for n, x in xs.items()}
+            pt = _depth_point(i + 1, lg, held, "reference", {})
+            if natural:
+                pt["natural"] = _depth_point(i + 1, lg, natural, "reference",
+                                             flipped)
             curve.append(pt)
-            limit = SHALLOW_RTOL if i == 0 else PREFILL_RTOL
-            for o in ("reference", "blocked"):
-                if not pt[f"flash_vs_{o}"] <= limit:
-                    raise AssertionError(
-                        f"logits after {i + 1} layers, kernels vs {o}: "
-                        f"{pt[f'flash_vs_{o}']} of max |logit| > {limit}")
-    return dict(arch=model.cfg.name, layers=len(model.blocks),
-                tol=_attn_tol("bfloat16", 0, 0.0), row_atol=ROW_ATOL,
-                **worst, shallow_rtol=SHALLOW_RTOL, rtol=PREFILL_RTOL,
-                by_depth=curve)
+    _hold_curve(curve, ("reference", "blocked"), "logits")
+    out = dict(arch=cfg.name, layers=len(model.blocks),
+               tol=_attn_tol("bfloat16", 0, 0.0), row_atol=ROW_ATOL,
+               **worst, shallow_rtol=SHALLOW_RTOL, rtol=PREFILL_RTOL,
+               by_depth=curve)
+    if moe_rows:
+        out["moe_layers"] = _moe_summary(moe_rows)
+    return out
 
 
 #: the decode walk's (requests, cache length): granite's first
@@ -1226,7 +1540,8 @@ def _decode_attention_plain2(blk, x, k_l, v_l, pos, window):
     decode attention: ``flash_attention_ref`` at S = 1, the query at
     ``pos`` (the same for every request) over every cached key, masked
     causally and by the window (probabilities in v's dtype, as the
-    reference's ``attention_reference``)."""
+    reference's ``attention_reference``), 32 requests at a time, which
+    bounds its expanded f32 keys."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.models import layers as L
@@ -1237,29 +1552,36 @@ def _decode_attention_plain2(blk, x, k_l, v_l, pos, window):
     q, k, v = blk._attn_proj(h, pos[:, None])
     _cache_write(k_l, k[:, 0], pos)
     _cache_write(v_l, v[:, 0], pos)
-    a = flash_attention_ref(q, k_l, v_l, pos[:1],
-                            torch.arange(T, device=x.device), causal=True,
-                            window=window, logit_cap=cfg.attn_logit_softcap)
+    a = torch.cat([flash_attention_ref(
+        q[b:b + 32], k_l[b:b + 32], v_l[b:b + 32], pos[:1],
+        torch.arange(T, device=x.device), causal=True, window=window,
+        logit_cap=cfg.attn_logit_softcap) for b in range(0, B, 32)])
     a = a.reshape(B, cfg.n_heads * cfg.hd) @ blk.wo
     if cfg.post_norms:
         a = L.rmsnorm(a, blk.post_attn_norm)
     return blk._mlp(x + a[:, None], ModelContext())
 
 
-def walk_decode(model) -> dict:
-    """One decode step against a full ``WALK_DECODE`` cache (random keys,
-    values and tokens from a seed, every request at the last position),
-    walked layer by layer three times over, each stream with its own
-    residual: under ``pallas`` (flash decode and the kernels' norms),
-    with the grouped einsum (``flash_decode_ref``) and with the second
-    plain decode attention (``_decode_attention_plain2``).  Each stream
-    writes its own key and value at ``pos`` before it attends.  At every
-    layer flash decode is held (``_hold_rows``) on the einsum stream's own
-    q and cache.  At each of ``DEPTHS`` the streams' logits are compared
-    over max |logit| of the einsum stream: after the first layer the
-    kernels must lie within ``SHALLOW_RTOL`` of each plain path, at every
-    depth within ``PREFILL_RTOL``.  These launches are checks, not the
-    main path's."""
+def walk_decode(model, shape: tuple = WALK_DECODE,
+                depths: tuple = DEPTHS) -> dict:
+    """One decode step against a full cache of ``shape`` (requests, cache
+    length; random keys, values and tokens from a seed, every request at
+    the last position), walked layer by layer three times over, each
+    stream with its own residual: under ``pallas`` (flash decode and the
+    kernels' norms), with the grouped einsum (``flash_decode_ref``) and
+    with the second plain decode attention (``_decode_attention_plain2``).
+    Each stream writes its own key and value at ``pos`` before it
+    attends.  At every layer flash decode is held (``_hold_rows``) on the
+    einsum stream's own q and cache, and an MoE layer on the einsum
+    stream's input (``_hold_moe_layer``, the attention halves under
+    ``pallas`` and with the einsum).  At each of ``depths`` the streams'
+    logits are compared over max |logit| of the einsum stream: after the
+    first layer the kernels must lie within ``SHALLOW_RTOL`` of each plain
+    path, at every depth within ``PREFILL_RTOL`` (``_hold_curve``).  For
+    an MoE model the held streams take the einsum stream's experts at
+    every layer (``_walk_streams``); the natural streams' readings, with
+    the requests whose experts flipped, are printed beside them.  These
+    launches are checks, not the main path's."""
     import torch
     from repro_torch.kernels.decode_attention import (
         flash_decode, flash_decode_ref)
@@ -1267,7 +1589,7 @@ def walk_decode(model) -> dict:
     from repro_torch.models.sharding import ModelContext
     from repro_torch.models.transformer import _cache_write
     cfg, dev = model.cfg, model.device
-    B, T = WALK_DECODE
+    B, T = shape
     g = torch.Generator(dev).manual_seed(4)
     cache = model.init_cache(B, T)
     _fill_cache(cache, g)
@@ -1275,12 +1597,13 @@ def walk_decode(model) -> dict:
                            dtype=torch.int32)
     pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
     pallas, plain = ModelContext(attention_impl="pallas"), ModelContext()
+    ctxs = {"pallas": pallas, "einsum": plain}
+    streams, held, natural = _walk_streams(cfg, ("flash", "einsum", "plain2"))
     cap = cfg.attn_logit_softcap
     worst = dict(max_abs_err=0.0, row_rel_err=0.0, row_limit_used=0.0)
-    curve = []
+    curve, moe_rows, flipped = [], [], {}
     with torch.no_grad():
-        xs = dict.fromkeys(("flash", "einsum", "plain2"),
-                           L.embed(tokens[:, None], model.embed))
+        xs = dict.fromkeys(streams, L.embed(tokens[:, None], model.embed))
         for i, (blk, window) in enumerate(zip(model.blocks, model.windows)):
             k_l, v_l = cache["k"][i], cache["v"][i]
             q, k, v = blk._attn_proj(L.rmsnorm(xs["einsum"], blk.attn_norm),
@@ -1298,37 +1621,42 @@ def walk_decode(model) -> dict:
                 f"cache")
             worst = {key: max(val, r[key]) for key, val in worst.items()}
             del got, q, k, v
-            xs = {"flash": blk.decode(xs["flash"], k_l, v_l, pos, window,
-                                      pallas),
-                  "einsum": blk.decode(xs["einsum"], k_l, v_l, pos, window,
-                                       plain),
-                  "plain2": _decode_attention_plain2(blk, xs["plain2"], k_l,
-                                                     v_l, pos, window)}
-            if i + 1 not in DEPTHS:
+            if cfg.is_moe:
+                x1 = {n: blk.decode_attend(xs["einsum"], k_l, v_l, pos,
+                                           window, c) for n, c in ctxs.items()}
+                moe_rows.append(dict(layer=i,
+                                     **_hold_moe_layer(blk, x1, ctxs)))
+                del x1
+            step = {"flash": functools.partial(blk.decode, k_l=k_l, v_l=v_l,
+                                               pos=pos, window=window,
+                                               ctx=pallas),
+                    "einsum": functools.partial(blk.decode, k_l=k_l, v_l=v_l,
+                                                pos=pos, window=window,
+                                                ctx=plain),
+                    "plain2": functools.partial(_decode_attention_plain2,
+                                                blk, k_l=k_l, v_l=v_l,
+                                                pos=pos, window=window)}
+            xs = _advance(cfg, xs, step, "einsum", flipped)
+            if i + 1 not in depths:
                 continue
             lg = {name: _last_logits(model, x) for name, x in xs.items()}
-            scale = lg["einsum"].abs().max().item()
-            rel = lambda a, b: (lg[a] - lg[b]).abs().max().item() / scale  # noqa: E731
-            pt = dict(depth=i + 1, logits_max_abs=scale,
-                      flash_vs_einsum=rel("flash", "einsum"),
-                      flash_vs_plain2=rel("flash", "plain2"),
-                      plain2_vs_einsum=rel("plain2", "einsum"),
-                      argmax_agree={name: float(
-                          (lg[name].argmax(-1) == lg["einsum"].argmax(-1))
-                          .float().mean().item()) for name in lg})
+            pt = _depth_point(i + 1, lg, held, "einsum", {})
+            pt["argmax_agree"] = {
+                a: float((lg[a].argmax(-1) == lg["einsum"].argmax(-1))
+                         .float().mean().item()) for a in lg}
+            if natural:
+                pt["natural"] = _depth_point(i + 1, lg, natural, "einsum",
+                                             flipped)
             curve.append(pt)
-            limit = SHALLOW_RTOL if i == 0 else PREFILL_RTOL
-            for o in ("einsum", "plain2"):
-                if not pt[f"flash_vs_{o}"] <= limit:
-                    raise AssertionError(
-                        f"decode logits after {i + 1} layers, kernels vs "
-                        f"{o}: {pt[f'flash_vs_{o}']} of max |logit| > "
-                        f"{limit}")
+    _hold_curve(curve, ("einsum", "plain2"), "decode logits")
     del cache
     torch.cuda.empty_cache()
-    return dict(arch=cfg.name, batch=B, cache_len=T, layers=len(model.blocks),
-                tol=_attn_tol("bfloat16", 0, 0.0), row_atol=ROW_ATOL, **worst,
-                shallow_rtol=SHALLOW_RTOL, rtol=PREFILL_RTOL, by_depth=curve)
+    out = dict(arch=cfg.name, batch=B, cache_len=T, layers=len(model.blocks),
+               tol=_attn_tol("bfloat16", 0, 0.0), row_atol=ROW_ATOL, **worst,
+               shallow_rtol=SHALLOW_RTOL, rtol=PREFILL_RTOL, by_depth=curve)
+    if moe_rows:
+        out["moe_layers"] = _moe_summary(moe_rows)
+    return out
 
 
 def walk_ssd(model, tokens) -> dict:
@@ -1370,13 +1698,86 @@ def profile_prefill(model, tokens) -> dict:
     from repro_torch.models.sharding import ModelContext
     step = build_prefill_step(model, ModelContext(attention_impl="pallas"),
                               last_only=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _moe_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _device_rows(prof, wall, "prefill " + model.cfg.name,
-                        share_of="flash_tc_kernel")
+    out = _device_rows(prof, wall, "prefill " + model.cfg.name,
+                       share_of="flash_tc_kernel")
+    if model.cfg.is_moe:
+        busy = out["device_busy_s"]
+        for name, (us, calls) in _range_kernels(prof, MOE_RANGES).items():
+            out[name] = dict(us=us, calls=calls,
+                             share_of_busy=(us / 1e6 / busy
+                                            if isinstance(busy, float)
+                                            else busy))
+    return out
+
+
+def _range_kernels(prof, names: tuple) -> dict:
+    """For each profiler range of ``names``: the device time (µs) of the
+    kernels and copies launched while the host was inside one of its
+    calls, and the number of calls.  A device event is tied to its
+    launch by the correlation id of the runtime call on the host."""
+    import bisect
+    import torch
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = {n: [] for n in names}
+    launched, device = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            if not ev.is_user_annotation():
+                device.append(ev)
+        elif ev.device_type() == cpu:
+            if ev.name() in spans:
+                spans[ev.name()].append((ev.start_ns(), ev.end_ns()))
+            elif ev.name().startswith("cu") and ev.correlation_id():
+                launched[ev.correlation_id()] = ev.start_ns()
+    out = {}
+    for name, sp in spans.items():
+        sp.sort()
+        starts = [a for a, _ in sp]
+        us = 0.0
+        for ev in device:
+            t = launched.get(ev.correlation_id())
+            i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            if i >= 0 and t < sp[i][1]:
+                us += ev.duration_ns() / 1e3
+        out[name] = (us, len(sp))
+    return out
+
+
+#: the MoE functions a prefill profile reads in its trace: each call runs
+#: in a profiler range of its name (``_moe_ranges``), whose kernels' device
+#: time the profile sums
+MOE_RANGES = ("moe_block", "moe_dense")
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """While inside, ``moe_block`` (as ``Block`` calls it) and
+    ``moe_dense`` (as ``moe_block`` calls it) each run in a
+    ``torch.profiler`` range of their name."""
+    import torch
+    from repro_torch.models import moe, transformer
+    where = ((transformer, "moe_block"), (moe, "moe_dense"))
+    orig = [getattr(m, n) for m, n in where]
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    for (m, n), fn in zip(where, orig):
+        setattr(m, n, ranged(n, fn))
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(where, orig):
+            setattr(m, n, fn)
 
 
 def drive_decode(model) -> tuple:
@@ -1476,15 +1877,17 @@ def drive_decode_ctx(model) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         snap = {k: c.clone() for k, c in cache.get("mamba", {}).items()}
-        got, _ = step(cache, tokens, pos)
+        with _routing() as own:
+            got, _ = step(cache, tokens, pos)
         got = got.float()
         for k, c in snap.items():
             cache["mamba"][k].copy_(c)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want, _ = plain(cache, tokens, pos)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        with _routing() as lead:
+            t0 = time.perf_counter()
+            want, _ = plain(cache, tokens, pos)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
         want = want.float()
         for k, c in snap.items():
             cache["mamba"][k].copy_(c)
@@ -1492,7 +1895,11 @@ def drive_decode_ctx(model) -> tuple:
         scale = want.abs().max().item()
         diff = (got - want).abs().max().item()
         agree = float((got.argmax(-1) == want.argmax(-1)).float().mean().item())
-        if not (bool(torch.isfinite(got).all()) and diff <= PREFILL_RTOL * scale):
+        moe_row = (_decode_moe_hold(model, step, cache, tokens, pos, got,
+                                    want, own, lead) if cfg.is_moe else {})
+        del own, lead
+        if not bool(torch.isfinite(got).all()) or (
+                not cfg.is_moe and not diff <= PREFILL_RTOL * scale):
             raise AssertionError(f"{cfg.name} decode {B}x{T}: flash decode vs "
                                  f"einsum logits max |diff| {diff} > "
                                  f"{PREFILL_RTOL} x max |logit| {scale}")
@@ -1528,11 +1935,88 @@ def drive_decode_ctx(model) -> tuple:
             bound_ms=(w_bytes + kv_bytes + 2 * st_bytes) / HBM_BPS * 1e3,
             peak_mem_gb=peak / 1e9, logits_max_abs=scale,
             flash_vs_einsum=diff, argmax_agree=agree, rtol=PREFILL_RTOL,
-            launches=counts,
+            **moe_row, launches=counts,
             profile=_device_rows(prof, pwall, f"decode {B}x{T}, 2 steps")))
         del cache, logits, got, want
         torch.cuda.empty_cache()
     return rows, launches
+
+
+def _decode_plain2_step(model, cache: dict, tokens, pos):
+    """A whole decode step with the second plain decode attention in
+    every layer (``_decode_attention_plain2``); returns the logits in
+    float32."""
+    import torch
+    from repro_torch.models import layers as L
+    with torch.no_grad():
+        x = L.embed(tokens[:, None], model.embed)
+        for i, (blk, window) in enumerate(zip(model.blocks, model.windows)):
+            x = _decode_attention_plain2(blk, x, cache["k"][i],
+                                         cache["v"][i], pos, window)
+        return _last_logits(model, x)
+
+
+def _decode_moe_hold(model, step, cache: dict, tokens, pos, got, want,
+                     own: list, lead: list) -> dict:
+    """An MoE model's decode step at context held against two plain
+    paths: ``want`` (the grouped einsum, whose experts ``lead`` recorded)
+    and the step with the second plain decode attention.  The kernels'
+    step (``step``) and the second plain step are run again with every
+    layer's experts forced to the einsum step's (``_routing``), so that
+    the three differ only by rounding; those logits are held within
+    ``PREFILL_RTOL`` of max |logit| of each other, and the next token as
+    the prefill's (``_hold_next_token``) on every request whose einsum
+    top-two gap exceeds the forced plain paths' spread there.  The
+    natural steps' readings (``got``, whose experts ``own`` recorded, and
+    the second plain step with its own experts) are printed beside them,
+    with the requests whose experts flipped."""
+    import torch
+    B = tokens.shape[0]
+    with _routing() as own2:
+        want2 = _decode_plain2_step(model, cache, tokens, pos)
+    with _routing(lead), torch.no_grad():
+        got_f = step(cache, tokens, pos)[0].float()
+    with _routing(lead):
+        want2_f = _decode_plain2_step(model, cache, tokens, pos)
+    scale = want.abs().max().item()
+    flips = {"kernels": _flipped(own, lead, B), "plain2": _flipped(own2, lead, B)}
+    spread = (want - want2_f).abs().max(-1).values
+    top2 = want.topk(2, dim=-1).values
+    held = (top2[:, 0] - top2[:, 1]) > spread
+    picks = [x.argmax(-1).tolist() for x in (got_f, want, want2_f)]
+    nat = (got - want).abs().amax(-1)
+    row = dict(forced=dict(
+                   kernels_vs_einsum=(got_f - want).abs().max().item(),
+                   kernels_vs_plain2=(got_f - want2_f).abs().max().item(),
+                   plain_spread=spread.max().item(),
+                   requests_held=int(held.sum().item())),
+               natural=dict(
+                   plain_spread=(want - want2).abs().max().item(),
+                   kernels_vs_plain2=(got - want2).abs().max().item(),
+                   plain_argmax_agree=float(
+                       (want.argmax(-1) == want2.argmax(-1)).float()
+                       .mean().item()),
+                   requests_flipped={n: int(f.sum().item())
+                                     for n, f in flips.items()},
+                   kernels_vs_einsum_unflipped=(
+                       nat[~flips["kernels"]].max().item()
+                       if bool((~flips["kernels"]).any()) else None)))
+    for key in ("kernels_vs_einsum", "kernels_vs_plain2"):
+        if not row["forced"][key] <= PREFILL_RTOL * scale:
+            raise AssertionError(f"{model.cfg.name} decode at context, "
+                                 f"experts forced to the einsum step's: "
+                                 f"{key} {row['forced'][key]} > "
+                                 f"{PREFILL_RTOL} x max |logit| {scale}: "
+                                 f"{row}")
+    if not bool(held.any()):
+        raise AssertionError(f"{model.cfg.name} decode at context: no "
+                             f"request's top-two gap exceeds the plain "
+                             f"paths' spread: {row}")
+    for b in held.nonzero()[:, 0].tolist():
+        _hold_next_token(picks[0][b], picks[1][b], picks[2][b],
+                         f"{model.cfg.name} decode at context, request {b} "
+                         f"(experts forced): {row}")
+    return row
 
 
 def _specs(pattern: str, arch: str, n: int, msgs: int):
@@ -2435,12 +2919,14 @@ def _device_rows(prof, wall: float, cell: str, share_of: str = "",
     ``torch.profiler`` run; with ``share_of``, the device time, launches
     and share of busy time of the kernels whose name holds it; with
     ``kinds``, device time and launches by :func:`_kernel_kind`.  Summed
-    from the profiler's raw device events (kernels, copies), which skips
-    building an event tree: a cohort run has a million kernels."""
+    from the profiler's raw device events (kernels, copies; not the
+    device spans of profiler ranges), which skips building an event tree:
+    a cohort run has a million kernels."""
     import torch
     agg: dict = {}
     for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+        if ev.device_type() != torch.autograd.DeviceType.CUDA or (
+                ev.is_user_annotation()):
             continue
         a = agg.setdefault(ev.name(), [0.0, 0])
         a[0] += ev.duration_ns() / 1e3
@@ -2892,12 +3378,37 @@ def drive_stream_phase(dev, done, local_wall=None) -> dict:
     return counts
 
 
-def serve(arch: str, dev, done, walk, walk_dec=None) -> tuple:
+def moe_share(model) -> dict:
+    """``moe_block`` of the first layer alone, on a random activation of
+    the prefill's shape (bf16, seed 5), timed with CUDA events beside its
+    bound (all experts for every token, the shared experts too: 6 T D F
+    (E + n_s) operations, at the bf16 peak).  The share of the prefill's
+    device time is read from its trace (``profile_prefill``)."""
+    import torch
+    from repro_torch.models.moe import moe_block
+    cfg, blk = model.cfg, model.blocks[0]
+    B, S = PREFILL[cfg.name]
+    h = torch.randn(B, S, cfg.d_model, device=model.device,
+                    generator=torch.Generator(model.device).manual_seed(5)
+                    ).to(torch.bfloat16)
+    kw = dict(k=cfg.experts_per_token, n_experts=cfg.n_experts,
+              n_shared=cfg.n_shared_experts,
+              capacity_factor=cfg.capacity_factor)
+    with torch.no_grad():
+        ms = _cuda_ms(lambda: moe_block(h, blk.moe_params(), **kw), 3, 3)
+    flops = 6 * B * S * cfg.d_model * cfg.d_ff * (
+        cfg.n_experts + cfg.n_shared_experts)
+    return dict(layer_ms=ms, flops=flops, bound_ms=flops / BF16_FLOPS * 1e3,
+                bound_share=flops / BF16_FLOPS * 1e3 / ms)
+
+
+def serve(arch: str, dev, done, walk=None, walk_dec=None) -> tuple:
     """Every serving phase of ``arch``: build, prefill (checked),
-    ``walk`` (the per-layer checks), prefill profile, ``generate``,
-    decode at context, and ``walk_dec`` (the decode step's per-layer
-    checks) where given.  Returns the launches of each main-path run by
-    path."""
+    ``walk`` (the per-layer checks) where given, prefill profile (with an
+    MoE model's ``moe_block`` and ``moe_dense`` shares read from its
+    trace, and ``moe_share``), ``generate``, decode at context, and
+    ``walk_dec`` (the decode step's per-layer checks) where given.
+    Returns the launches of each main-path run by path."""
     import torch
     model, init_s = build_lm(arch, dev)
     prefill, tokens, counts = drive_prefill(model, init_s)
@@ -2905,9 +3416,13 @@ def serve(arch: str, dev, done, walk, walk_dec=None) -> tuple:
     by_path = {f"{arch} prefill": counts}
     check_prefill(prefill)
     done(f"{arch} prefill")
-    print("serve layers:", json.dumps(walk(model, tokens)))
-    done(f"{arch} prefill by layer")
-    print("profile:", json.dumps(profile_prefill(model, tokens)))
+    if walk is not None:
+        print("serve layers:", json.dumps(walk(model, tokens)))
+        done(f"{arch} prefill by layer")
+    prof = profile_prefill(model, tokens)
+    if model.cfg.is_moe:
+        prof["moe_block_alone"] = moe_share(model)
+    print("profile:", json.dumps(prof))
     row, by_path[f"{arch} generate"] = drive_decode(model)
     print("serve decode:", json.dumps(row))
     done(f"{arch} prefill profile and generate")
@@ -2922,6 +3437,21 @@ def serve(arch: str, dev, done, walk, walk_dec=None) -> tuple:
     del model, tokens
     gc.collect()
     torch.cuda.empty_cache()
+    return by_path
+
+
+def serve_families(dev, done) -> dict:
+    """The MoE, audio and VLM serving phases (``FAMILY_SERVE``), each
+    model built after the previous one's memory is freed; the MoE
+    models' prefill and decode step at context walked layer by layer
+    (``MOE_DEPTHS``).  Returns the launches by path."""
+    walk = functools.partial(walk_layers, depths=MOE_DEPTHS)
+    by_path = {}
+    for arch, sizes in FAMILY_SERVE.items():
+        walk_dec = functools.partial(walk_decode, shape=sizes["decode_ctx"][0],
+                                     depths=MOE_DEPTHS)
+        by_path.update(serve(arch, dev, done, *(
+            (walk, walk_dec) if sizes["walk"] else ())))
     return by_path
 
 
@@ -3005,6 +3535,7 @@ def main() -> int:
     done("profiles")
     by_path.update(serve("granite-8b", dev, done, walk_layers, walk_decode))
     by_path.update(serve("zamba2-7b", dev, done, walk_ssd))
+    by_path.update(serve_families(dev, done))
     by_path["train"], train_rows = drive_train_phase(dev, done)
     by_path["stream"] = drive_stream_phase(
         dev, done, train_rows["granite-8b"]["step_wall_s"])

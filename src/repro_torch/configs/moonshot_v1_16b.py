@@ -1,0 +1,20 @@
+"""moonshot-v1-16b-a3b [moe]: kimi/moonlight, 64 experts top-6 + 2 shared
+experts [hf:moonshotai/Moonlight-16B-A3B; hf]. d_ff=1408 per expert."""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="moonshot-v1-16b-a3b", family="moe",
+    n_layers=48, d_model=2048, n_heads=16, n_kv_heads=16,
+    d_ff=1408, vocab_size=163840,
+    n_experts=64, experts_per_token=6, n_shared_experts=2,
+    microbatches=4,
+)
+
+SMOKE_CONFIG = ArchConfig(
+    name="moonshot-v1-16b-a3b-smoke", family="moe",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+    d_ff=32, vocab_size=128,
+    n_experts=8, experts_per_token=2, n_shared_experts=2,
+    remat=False,
+)

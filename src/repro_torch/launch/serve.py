@@ -7,6 +7,16 @@ Runs on the GPU unless asked for the CPU::
     python -m repro_torch.launch.serve --arch granite-8b-smoke --device cpu
     python -m repro_torch.launch.serve --arch zamba2-7b
     python -m repro_torch.launch.serve --arch zamba2-7b-smoke --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b-smoke --device cpu
+    python -m repro_torch.launch.serve --arch musicgen-large
+    python -m repro_torch.launch.serve --arch pixtral-12b-smoke --device cpu
+
+``--arch`` takes any name of ``repro_torch.configs.ARCH_NAMES`` (the
+dense, MoE, audio, VLM and hybrid families) or its ``-smoke`` form.
+Decode runs on token ids for every family, as the reference's: the
+audio model's ids are its codebook tokens, and the VLM's prompt is text
+only (the prefill step takes the frontends' embeddings).
 """
 
 from __future__ import annotations
@@ -64,7 +74,9 @@ def generate(model: LM, prompts: torch.Tensor, max_new: int,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-8b-smoke")
+    ap.add_argument("--arch", default="granite-8b-smoke",
+                    help="one of repro_torch.configs.ARCH_NAMES or "
+                         "'<name>-smoke'")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=24)

@@ -8,7 +8,8 @@ train_step: gradient-accumulation microbatching (the per-arch
   microbatches with ``lax.scan``; here a loop runs ``backward`` once per
   microbatch.
 serve_step: one decode step against the KV cache (updated in place);
-prefill_step: full forward returning last-position logits.
+prefill_step: full forward returning last-position logits, on token ids
+or a batch dict of any family.
 """
 
 from __future__ import annotations
@@ -86,10 +87,13 @@ def build_serve_step(model: LM, ctx: ModelContext):
 
 def build_prefill_step(model: LM, ctx: ModelContext,
                        last_only: bool = False):
+    """``prefill_step(batch) -> (B, V)`` last-position logits; ``batch``
+    is the token ids (B, S) or a batch dict of the model's family
+    (``{"embeds"}`` for audio, ``{"tokens", "patch_embeds"}`` for vlm)."""
     @torch.no_grad()
-    def prefill_step(tokens: torch.Tensor) -> torch.Tensor:
+    def prefill_step(batch: "torch.Tensor | dict") -> torch.Tensor:
         if last_only:
             # the vocab head for the final position only
-            return model(tokens, ctx, last_only=True)[:, 0]
-        return model(tokens, ctx)[:, -1]
+            return model(batch, ctx, last_only=True)[:, 0]
+        return model(batch, ctx)[:, -1]
     return prefill_step

@@ -111,13 +111,16 @@ class HybridLM(nn.Module):
             x = x + self.mamba[i](x, ctx)
         return self.shared_attn(x, 0, positions, ctx)
 
-    def forward(self, tokens: torch.Tensor, ctx: Optional[ModelContext] = None,
+    def forward(self, tokens: "torch.Tensor | Mapping",
+                ctx: Optional[ModelContext] = None,
                 last_only: bool = False) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V), or (B, 1, V) when
-        ``last_only``.  S must be a multiple of the SSD chunk (256) or
-        shorter than it."""
+        """tokens (B, S), or a batch dict holding them under ``"tokens"``
+        -> logits (B, S, V), or (B, 1, V) when ``last_only``.  S must be a
+        multiple of the SSD chunk (256) or shorter than it."""
         ctx = ctx or ModelContext()
         cfg = self.cfg
+        if isinstance(tokens, Mapping):
+            tokens = tokens["tokens"]
         x = L.embed(tokens, self.embed.to(ACT_DTYPE))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
@@ -132,7 +135,7 @@ class HybridLM(nn.Module):
         x = L.rmsnorm(x, self.final_norm, ctx=ctx)
         return L.unembed(x, self.lm_head, self.cfg.final_logit_softcap)
 
-    def prefill(self, tokens: torch.Tensor,
+    def prefill(self, tokens: "torch.Tensor | Mapping",
                 ctx: Optional[ModelContext] = None) -> torch.Tensor:
         """Full forward returning last-position logits (B, V)."""
         return self.forward(tokens, ctx)[:, -1]

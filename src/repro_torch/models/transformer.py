@@ -1,11 +1,24 @@
-"""Decoder-only transformer LM of the dense family, the port's counterpart
-of the reference's ``repro.models.transformer``.
+"""Decoder-only transformer LM of the port, covering the dense, MoE,
+audio-backbone and VLM-backbone families: the counterpart of the
+reference's ``repro.models.transformer``.
 
 The reference stacks parameters along a leading layer axis and scans
 the layers; here each layer is a :class:`Block` in a ``ModuleList`` and
 the layers run in a Python loop.  gemma2's local/global alternation
 (the reference's ``_pair``) is a static window per layer: even layers
-``cfg.window``, odd layers 0 (global).
+``cfg.window``, odd layers 0 (global).  An MoE config's block holds the
+reference's expert weights (``router``, ``wi_e``, ``wo_e`` and, with
+shared experts, ``wi_s``, ``wo_s``) in place of ``wi``/``wo_mlp`` and
+runs :func:`repro_torch.models.moe.moe_block`.
+
+``forward`` takes the token ids (B, S) or one of the reference's batch
+forms (the modality frontends are stubs, as there):
+
+  {"tokens": (B, S) int}                            LM
+  {"embeds": (B, S, D)}                             audio (musicgen)
+  {"tokens": (B, S_text), "patch_embeds": (B, P, D)}  vlm (pixtral)
+
+Decode steps take token ids for every family, as in the reference.
 
 Activations are bf16, as the reference hard-codes (``_input_embeds``).
 The reference keeps f32 master weights and casts each matmul weight and
@@ -13,9 +26,11 @@ the embedding table to the activation dtype where it is used
 (``.astype(x.dtype)``); the port does the same (``w.to(x.dtype)``).  For
 serving (the default), the matmul weights are stored in bf16 and frozen:
 the cast is then a no-op and storing the bf16 cast is the same
-arithmetic.  For training, ``trainable=True`` gives every weight as an
-f32 master that requires grad, and the gradient flows through the cast
-into f32.  Norm weights are f32 either way.
+arithmetic.  The MoE router, which the reference runs in float32 on its
+f32 weights, is stored in f32 like the norms.  For training,
+``trainable=True`` gives every weight as an f32 master that requires
+grad, and the gradient flows through the cast into f32.  Norm weights
+are f32 either way.
 Weights keep the reference orientation (``x @ w``, ``(in, out)``), so
 carrying them over (:func:`params_from_jax`, and back,
 :func:`params_to_numpy`) is a copy and a cast.
@@ -27,8 +42,7 @@ local/global pair.
 Under ``attention_impl="pallas"`` every norm runs the fused RMSNorm
 kernel and decode the flash decode kernel, beside flash attention.  The
 hybrid family is :mod:`repro_torch.models.hybrid` (its shared block is a
-:class:`Block`); the MoE family (``models/moe.py``), the audio and VLM
-frontends and the xLSTM family are later slices of the port.
+:class:`Block`); the xLSTM family is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -42,12 +56,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_block
 from repro_torch.models.sharding import ModelContext
 
 #: standard deviation of the random init, the reference's ``dense_init``
 INIT_SCALE = 0.02
 #: activation dtype, which the reference hard-codes
 ACT_DTYPE = torch.bfloat16
+#: the families this module builds (the reference's zoo's)
+TRANSFORMER_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def _weight(*shape: int, device, dtype, trainable: bool) -> nn.Parameter:
@@ -105,8 +122,17 @@ class Block(nn.Module):
         self.wv = _weight(D, KV * hd, **mm)
         self.wo = _weight(H * hd, D, **mm)
         self.mlp_norm = _weight(D, **norm)
-        self.wi = _weight(D, 2 * ff, **mm)
-        self.wo_mlp = _weight(ff, D, **mm)
+        if cfg.is_moe:
+            E, ns = cfg.n_experts, cfg.n_shared_experts
+            self.router = _weight(D, E, **norm)
+            self.wi_e = _weight(E, D, 2 * ff, **mm)
+            self.wo_e = _weight(E, ff, D, **mm)
+            if ns > 0:
+                self.wi_s = _weight(D, 2 * ff * ns, **mm)
+                self.wo_s = _weight(ff * ns, D, **mm)
+        else:
+            self.wi = _weight(D, 2 * ff, **mm)
+            self.wo_mlp = _weight(ff, D, **mm)
         if cfg.post_norms:
             self.post_attn_norm = _weight(D, **norm)
             self.post_mlp_norm = _weight(D, **norm)
@@ -122,16 +148,31 @@ class Block(nn.Module):
         k = L.rope(k, positions, cfg.rope_theta)
         return q, k, v
 
+    def moe_params(self) -> dict:
+        """The MoE weights under the names of the reference's ``moe``
+        module (its ``_moe_params``)."""
+        mp = {"router": self.router, "wi": self.wi_e, "wo": self.wo_e}
+        if self.cfg.n_shared_experts > 0:
+            mp.update(wi_s=self.wi_s, wo_s=self.wo_s)
+        return mp
+
     def _mlp(self, x: torch.Tensor, ctx: ModelContext) -> torch.Tensor:
+        cfg = self.cfg
         h = L.rmsnorm(x, self.mlp_norm, ctx=ctx)
-        m = L.swiglu(h, self.wi, self.wo_mlp)
-        if self.cfg.post_norms:
+        if cfg.is_moe:
+            m = moe_block(h, self.moe_params(), k=cfg.experts_per_token,
+                          n_experts=cfg.n_experts,
+                          n_shared=cfg.n_shared_experts,
+                          capacity_factor=cfg.capacity_factor, ctx=ctx)
+        else:
+            m = L.swiglu(h, self.wi, self.wo_mlp)
+        if cfg.post_norms:
             m = L.rmsnorm(m, self.post_mlp_norm, ctx=ctx)
         return x + m
 
-    def forward(self, x: torch.Tensor, window: int, positions: torch.Tensor,
-                ctx: ModelContext) -> torch.Tensor:
-        """x: (B, S, D); ``window`` static (0 = global)."""
+    def attend(self, x: torch.Tensor, window: int, positions: torch.Tensor,
+               ctx: ModelContext) -> torch.Tensor:
+        """The block's attention half: x plus its attention output."""
         B, S, _ = x.shape
         cfg = self.cfg
         h = L.rmsnorm(x, self.attn_norm, ctx=ctx)
@@ -142,13 +183,18 @@ class Block(nn.Module):
         a = a.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo.to(x.dtype)
         if cfg.post_norms:
             a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
-        return self._mlp(x + a, ctx)
+        return x + a
 
-    def decode(self, x: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,
-               pos: torch.Tensor, window: int, ctx: ModelContext
-               ) -> torch.Tensor:
-        """One token: x (B, 1, D); writes its K/V into this layer's cache
-        ``k_l``/``v_l`` (B, T, KV, hd) at ``pos`` in place."""
+    def forward(self, x: torch.Tensor, window: int, positions: torch.Tensor,
+                ctx: ModelContext) -> torch.Tensor:
+        """x: (B, S, D); ``window`` static (0 = global)."""
+        return self._mlp(self.attend(x, window, positions, ctx), ctx)
+
+    def decode_attend(self, x: torch.Tensor, k_l: torch.Tensor,
+                      v_l: torch.Tensor, pos: torch.Tensor, window: int,
+                      ctx: ModelContext) -> torch.Tensor:
+        """The attention half of :meth:`decode`: x plus its attention
+        output; writes the token's K/V into the cache."""
         B = x.shape[0]
         cfg = self.cfg
         h = L.rmsnorm(x, self.attn_norm, ctx=ctx)
@@ -160,7 +206,15 @@ class Block(nn.Module):
         a = a.reshape(B, cfg.n_heads * cfg.hd) @ self.wo.to(x.dtype)
         if cfg.post_norms:
             a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
-        return self._mlp(x + a[:, None], ctx)
+        return x + a[:, None]
+
+    def decode(self, x: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,
+               pos: torch.Tensor, window: int, ctx: ModelContext
+               ) -> torch.Tensor:
+        """One token: x (B, 1, D); writes its K/V into this layer's cache
+        ``k_l``/``v_l`` (B, T, KV, hd) at ``pos`` in place."""
+        return self._mlp(self.decode_attend(x, k_l, v_l, pos, window, ctx),
+                         ctx)
 
 
 def _cache_write(cache_l: torch.Tensor, kv_t: torch.Tensor,
@@ -177,7 +231,9 @@ def _cache_write(cache_l: torch.Tensor, kv_t: torch.Tensor,
 
 
 class TransformerLM(nn.Module):
-    """Dense decoder-only LM.  Weights start at zero: fill them with
+    """Decoder-only LM of the dense, MoE, audio and VLM families (the
+    last two on their stub frontends).  Weights start at zero: fill them
+    with
     :meth:`init_params` or :func:`params_from_jax`.  ``trainable`` gives
     f32 masters that require grad (to train); by default the matmul
     weights and the embedding are stored in bf16 and frozen (to serve)."""
@@ -188,12 +244,11 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device: "torch.device | str",
                  trainable: bool = False):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in TRANSFORMER_FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not a dense "
-                "transformer (the port serves the dense and hybrid "
-                "families; MoE, the audio/VLM frontends and xLSTM are "
-                "later slices)")
+                f"{cfg.name}: the {cfg.family!r} family is not a "
+                f"transformer LM ({TRANSFORMER_FAMILIES}); the hybrid family "
+                "is HybridLM, and xLSTM ('ssm') is a later slice of the port")
         if cfg.attn_pattern == "local_global" and cfg.n_layers % 2:
             raise ValueError(f"{cfg.name}: local_global needs an even layer "
                              f"count, got {cfg.n_layers}")
@@ -223,10 +278,11 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "TransformerLM":
-        """Random weights on the model's device: every matmul weight and
-        the embedding (the tensors of rank 2) N(0, 0.02^2), drawn in place
-        in their storage dtype from ``generator`` (on the same device);
-        norm weights 0, i.e. a scale of 1, as the reference's init."""
+        """Random weights on the model's device: every matmul weight, the
+        MoE router and experts and the embedding (the tensors of rank 2 or
+        more) N(0, 0.02^2), drawn in place in their storage dtype from
+        ``generator`` (on the same device); norm weights 0, i.e. a scale of
+        1, as the reference's init."""
         for p in self.parameters():
             if p.dim() >= 2:
                 p.normal_(0.0, INIT_SCALE, generator=generator)
@@ -240,15 +296,30 @@ class TransformerLM(nn.Module):
             x = self.blocks[i](x, self.windows[i], positions, ctx)
         return x
 
-    def forward(self, tokens: torch.Tensor, ctx: Optional[ModelContext] = None,
+    def input_embeds(self, batch: Mapping) -> torch.Tensor:
+        """The residual stream's input (B, S, D), the reference's
+        ``_input_embeds``: ``embeds`` as given (audio stub), or the
+        token embeddings in the activation dtype with ``patch_embeds``
+        cast to it and put before them (vlm stub)."""
+        if "embeds" in batch:
+            return batch["embeds"]
+        x = L.embed(batch["tokens"], self.embed.to(ACT_DTYPE))
+        if "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+        return x
+
+    def forward(self, batch: "torch.Tensor | Mapping",
+                ctx: Optional[ModelContext] = None,
                 last_only: bool = False) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V), or (B, 1, V) when
-        ``last_only`` (prefill: the vocab head for the last position
-        only).  Positions are 0..S-1, made once as int32.  The layers run
-        in the reference's checkpoint units: one layer, or a gemma2
-        local/global pair."""
+        """batch: token ids (B, S) or a batch dict (see the module
+        docstring) -> logits (B, S, V), or (B, 1, V) when ``last_only``
+        (prefill: the vocab head for the last position only).  Positions
+        are 0..S-1, made once as int32.  The layers run in the
+        reference's checkpoint units: one layer, or a gemma2 local/global
+        pair."""
         ctx = ctx or ModelContext()
-        x = L.embed(tokens, self.embed.to(ACT_DTYPE))
+        x = self.input_embeds(batch if isinstance(batch, Mapping)
+                              else {"tokens": batch})
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         per = 2 if self.cfg.attn_pattern == "local_global" else 1
@@ -260,10 +331,10 @@ class TransformerLM(nn.Module):
         x = L.rmsnorm(x, self.final_norm, ctx=ctx)
         return L.unembed(x, self.head(), self.cfg.final_logit_softcap)
 
-    def prefill(self, tokens: torch.Tensor,
+    def prefill(self, batch: "torch.Tensor | Mapping",
                 ctx: Optional[ModelContext] = None) -> torch.Tensor:
         """Full forward returning last-position logits (B, V)."""
-        return self.forward(tokens, ctx)[:, -1]
+        return self.forward(batch, ctx)[:, -1]
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -296,7 +367,8 @@ def params_from_jax(tree: Mapping, cfg: ArchConfig,
     ``final_norm`` (D,) and ``lm_head`` (D, V) unless tied.  To serve,
     matmul weights and the embedding are rounded to bf16 (round to
     nearest even, the reference's on-the-fly cast); ``trainable`` copies
-    the reference's f32 masters exactly.  Norm weights are kept in f32."""
+    the reference's f32 masters exactly.  Norm weights and the MoE
+    router are kept in f32."""
     model = TransformerLM(cfg, device, trainable)
     blocks = tree["blocks"]
     want = {name for name, _ in model.blocks[0].named_parameters()}

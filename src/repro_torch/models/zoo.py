@@ -5,9 +5,10 @@ returns a bundle of pure functions over a params pytree; the port
 returns an ``nn.Module`` that holds its weights (fill them with
 ``init_params(generator)`` or load the reference's with the
 ``params_from_jax`` of :mod:`repro_torch.models.transformer` or
-:mod:`repro_torch.models.hybrid`).  So far the dense and hybrid families
-are ported.  The reference's ``Model.loss``, ``batch_shapes`` and
-``make_batch`` are functions of the model or its config here.
+:mod:`repro_torch.models.hybrid`).  The dense, MoE, audio, VLM and
+hybrid families are ported; xLSTM is not yet.  The reference's
+``Model.loss``, ``batch_shapes`` and ``make_batch`` are functions of the
+model or its config here.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ from repro_torch.models.layers import cross_entropy
 from repro_torch.models.sharding import ModelContext
 from repro_torch.models.transformer import TransformerLM
 
-#: the port's language models: each has ``forward(tokens, ctx,
-#: last_only)``, ``init_cache(batch, max_len)``, ``decode_step(cache,
-#: tokens, pos, ctx)``, ``init_params(generator)`` and ``decayed()``
+#: the port's language models: each has ``forward(batch, ctx,
+#: last_only)`` (token ids or a batch dict), ``init_cache(batch,
+#: max_len)``, ``decode_step(cache, tokens, pos, ctx)``,
+#: ``init_params(generator)`` and ``decayed()``
 LM = Union[TransformerLM, HybridLM]
 
 
@@ -36,40 +38,54 @@ def build_model(cfg: ArchConfig, device: "torch.device | str" = "cuda",
     ``trainable``, every weight an f32 master that requires grad, which
     training updates.  Raises ``RuntimeError`` when ``device`` is CUDA and
     no GPU is available, ``NotImplementedError`` for a family that is not
-    ported yet."""
+    ported yet (xLSTM, ``"ssm"``)."""
     device = resolve_device(device)
     cls = HybridLM if cfg.family == "hybrid" else TransformerLM
     return cls(cfg, device, trainable)
 
 
-def _text_only(cfg: ArchConfig) -> None:
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} frontend is not ported yet "
-            "(ROADMAP §1)")
-
-
 def loss(model: LM, batch: dict, ctx: Optional[ModelContext] = None
          ) -> torch.Tensor:
-    """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"}
-    (B, S), optional "loss_mask"), the reference's ``Model.loss``."""
-    _text_only(model.cfg)
-    logits = model(batch["tokens"], ctx)
+    """Mean next-token cross entropy of ``batch`` (one of
+    :func:`batch_shapes`'s forms with its "labels", optional
+    "loss_mask"), the reference's ``Model.loss``: for the vlm family only
+    on the text positions (the image prefix is conditioning)."""
+    logits = model(batch, ctx)
+    if model.cfg.family == "vlm":
+        logits = logits[:, model.cfg.num_patches:]
     return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
 
 def batch_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
-    """(shape, dtype) of each entry of one training/prefill batch."""
-    _text_only(cfg)
-    return {"tokens": ((batch, seq), torch.int32),
-            "labels": ((batch, seq), torch.int32)}
+    """(shape, dtype) of each entry of one training/prefill batch: ids
+    (B, S) and labels, or for audio bf16 frame embeddings (B, S, D), or
+    for vlm ``num_patches`` bf16 patch embeddings before S - num_patches
+    ids, as the reference's."""
+    ids, emb = torch.int32, torch.bfloat16
+    if cfg.family == "audio":
+        return {"embeds": ((batch, seq, cfg.d_model), emb),
+                "labels": ((batch, seq), ids)}
+    if cfg.family == "vlm":
+        P = cfg.num_patches
+        return {"tokens": ((batch, seq - P), ids),
+                "patch_embeds": ((batch, P, cfg.d_model), emb),
+                "labels": ((batch, seq - P), ids)}
+    return {"tokens": ((batch, seq), ids), "labels": ((batch, seq), ids)}
 
 
 def make_batch(cfg: ArchConfig, generator: torch.Generator, batch: int,
                seq: int) -> dict:
-    """A random batch on ``generator``'s device: ids uniform in
-    ``[0, vocab)``, drawn entry by entry."""
-    return {name: torch.randint(0, cfg.vocab_size, shape,
-                                generator=generator, dtype=dtype,
-                                device=generator.device)
-            for name, (shape, dtype) in batch_shapes(cfg, batch, seq).items()}
+    """A random batch on ``generator``'s device, drawn entry by entry:
+    ids uniform in ``[0, vocab)``, embeddings 0.02 x N(0, 1) rounded to
+    their dtype before the product, as the reference makes them."""
+    out = {}
+    for name, (shape, dtype) in batch_shapes(cfg, batch, seq).items():
+        if dtype.is_floating_point:
+            out[name] = 0.02 * torch.randn(
+                shape, generator=generator,
+                device=generator.device).to(dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, shape,
+                                      generator=generator, dtype=dtype,
+                                      device=generator.device)
+    return out

@@ -162,7 +162,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.main(["--arch", "granite-8b-smoke", "--max-new", "2"])
 
 
-@pytest.mark.parametrize("family", ["moe", "audio", "vlm", "ssm"])
+@pytest.mark.parametrize("family", ["ssm"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_smoke_config("granite-8b"), family=family)
     with pytest.raises(NotImplementedError, match=family):

@@ -151,6 +151,55 @@ def test_port_exports_the_reference_streaming_names():
             assert got == want, name
 
 
+#: the reference's public MoE functions, which ``repro_torch.models.moe``
+#: mirrors (``moe_ep`` and ``_ep_local`` wait for the mesh)
+MOE_NAMES = ("router_probs", "load_balancing_loss", "moe_dense", "moe_block")
+
+
+@pytest.mark.parametrize("name", MOE_NAMES)
+def test_port_exports_the_reference_moe_names(name):
+    from repro.models import moe as ref_moe
+    from repro_torch.models import moe as port_moe
+    want, got = getattr(ref_moe, name), getattr(port_moe, name)
+    assert name in port_moe.__all__
+    assert type(got) is type(want) and got.__name__ == want.__name__
+    assert got.__module__ == "repro_torch.models.moe"
+
+
+#: the configs of the MoE, audio and VLM slice
+FAMILY_SLICE_CONFIGS = ("qwen3_moe_30b", "moonshot_v1_16b", "musicgen_large",
+                        "pixtral_12b")
+
+
+@pytest.mark.parametrize("module", FAMILY_SLICE_CONFIGS)
+def test_port_exports_the_reference_configs(module):
+    import importlib
+    ref = importlib.import_module(f"repro.configs.{module}")
+    port = importlib.import_module(f"repro_torch.configs.{module}")
+    for name in ("CONFIG", "SMOKE_CONFIG"):
+        assert dataclasses.asdict(getattr(port, name)) == dataclasses.asdict(
+            getattr(ref, name))
+        assert type(getattr(port, name)).__module__ == \
+            "repro_torch.configs.base"
+
+
+def test_port_registers_the_reference_architectures_in_order():
+    import repro.configs
+    import repro_torch.configs
+    assert repro_torch.configs.ARCH_NAMES == tuple(
+        n for n in repro.configs.ARCH_NAMES if n != "xlstm-1.3b")
+
+
+def test_import_scan_covers_the_moe_audio_vlm_modules():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("src/repro_torch/models/moe.py",
+                "src/repro_torch/models/transformer.py",
+                "src/repro_torch/models/zoo.py",
+                "chip_probes/serve_families.py") + tuple(
+            f"src/repro_torch/configs/{m}.py" for m in FAMILY_SLICE_CONFIGS):
+        assert rel in scanned, rel
+
+
 def test_workloads_match_reference():
     assert set(port_wl.WORKLOADS) == set(ref_wl.WORKLOADS)
     for name, w in ref_wl.WORKLOADS.items():

@@ -129,8 +129,14 @@ def test_batch_shapes_and_make_batch(arch):
     again = zoo.make_batch(cfg, torch.Generator().manual_seed(0), 3, 16)
     assert all(torch.equal(batch[k], again[k]) for k in batch)
     for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError):
-            zoo.batch_shapes(dataclasses.replace(cfg, family=family), 3, 16)
+        over = dict(family=family, num_patches=4)
+        fwant = jax_build(dataclasses.replace(jax_smoke(arch), **over)
+                          ).batch_shapes(3, 16)
+        fgot = zoo.batch_shapes(dataclasses.replace(cfg, **over), 3, 16)
+        assert list(fgot) == list(fwant)
+        for k, (shape, dtype) in fgot.items():
+            assert shape == fwant[k].shape
+            assert str(dtype).removeprefix("torch.") == str(fwant[k].dtype)
 
 
 @pytest.mark.parametrize("masked", [False, True])
