@@ -25,12 +25,14 @@
   ``multi_tenant``, ``deployment_feasibility``, ``chaos_campaign``,
   ``availability_crossover`` (``core/patterns.py``) and
   ``run_campaign`` (``core/campaign.py``).
-* Dense-transformer serving: ``models.zoo.build_model(cfg,
+* Serving every model family of the reference (dense, MoE, audio, VLM,
+  the zamba2 hybrid and xLSTM): ``models.zoo.build_model(cfg,
   device="cuda")``, ``launch.steps.build_prefill_step`` and
-  ``launch.serve.generate``, with flash attention as a hand-written CUDA
-  kernel (``ModelContext(attention_impl="pallas")``).
-* Training of the dense and hybrid families: ``launch.train.run`` (and
-  ``python -m repro_torch.launch.train``) on ``data.SyntheticTokens``,
+  ``launch.serve.generate``, with flash attention, flash decode, RMSNorm
+  and the SSD state scan as hand-written CUDA kernels
+  (``ModelContext(attention_impl="pallas")``).
+* Training of the dense, hybrid and xLSTM families: ``launch.train.run``
+  (and ``python -m repro_torch.launch.train``) on ``data.SyntheticTokens``,
   with ``build_model(cfg, device, trainable=True)`` (f32 masters),
   ``launch.train.build_trainer``, ``optim.AdamW`` (decaying
   ``model.decayed()``, the reference's rule in its layout),

@@ -2,9 +2,9 @@
 ``repro.configs.base``, every field and property kept.
 
 One frozen dataclass describes every model family (dense / MoE /
-hybrid-SSM / xLSTM / audio / VLM); the port builds all but xLSTM so
-far.  Each architecture's module exports ``CONFIG`` (full
-size) and ``SMOKE_CONFIG`` (reduced same-family config for CPU tests).
+hybrid-SSM / xLSTM / audio / VLM); the port builds every one.  Each
+architecture's module exports ``CONFIG`` (full size) and
+``SMOKE_CONFIG`` (reduced same-family config for CPU tests).
 """
 
 from __future__ import annotations

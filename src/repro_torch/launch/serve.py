@@ -1,4 +1,4 @@
-"""Batched serving entry point of the port: prefill + decode with the KV cache,
+"""Batched serving entry point of the port: prefill + decode with the cache,
 the counterpart of the reference's ``repro.launch.serve``.
 
 Runs on the GPU unless asked for the CPU::
@@ -11,9 +11,12 @@ Runs on the GPU unless asked for the CPU::
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b-smoke --device cpu
     python -m repro_torch.launch.serve --arch musicgen-large
     python -m repro_torch.launch.serve --arch pixtral-12b-smoke --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-1.3b
+    python -m repro_torch.launch.serve --arch xlstm-1.3b-smoke --device cpu
 
 ``--arch`` takes any name of ``repro_torch.configs.ARCH_NAMES`` (the
-dense, MoE, audio, VLM and hybrid families) or its ``-smoke`` form.
+dense, MoE, audio, VLM, hybrid and xLSTM families) or its ``-smoke``
+form.
 Decode runs on token ids for every family, as the reference's: the
 audio model's ids are its codebook tokens, and the VLM's prompt is text
 only (the prefill step takes the frontends' embeddings).

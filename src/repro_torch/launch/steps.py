@@ -7,7 +7,8 @@ train_step: gradient-accumulation microbatching (the per-arch
   optimiser state are updated in place.  The reference scans the
   microbatches with ``lax.scan``; here a loop runs ``backward`` once per
   microbatch.
-serve_step: one decode step against the KV cache (updated in place);
+serve_step: one decode step against the model's cache (the KV cache, and
+  the recurrent state of the hybrid and xLSTM families), updated in place;
 prefill_step: full forward returning last-position logits, on token ids
 or a batch dict of any family.
 """
@@ -63,13 +64,18 @@ def build_train_step(model: LM, optimizer: AdamW,
                 loss = loss + mb_loss.detach()
             with torch.no_grad():
                 for p in params.values():
-                    p.grad.div_(M)
+                    if p.grad is not None:
+                        p.grad.div_(M)
             loss = loss / M
         else:
             loss = loss_fn(batch)
             loss.backward()
             loss = loss.detach()
-        grads = {n: p.grad for n, p in params.items()}
+        # a weight the loss does not reach (an xLSTM block's leaves of the
+        # other kind) has no .grad; the reference's gradient there is
+        # zero, and AdamW still decays the weight
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
         _, _, metrics = optimizer.update(grads, opt_state, params)
         for p in params.values():
             p.grad = None
@@ -80,7 +86,8 @@ def build_train_step(model: LM, optimizer: AdamW,
 
 def build_serve_step(model: LM, ctx: ModelContext):
     @torch.no_grad()
-    def serve_step(cache: dict, tokens: torch.Tensor, pos: torch.Tensor):
+    def serve_step(cache: "dict | list", tokens: torch.Tensor,
+                   pos: torch.Tensor):
         return model.decode_step(cache, tokens, pos, ctx)
     return serve_step
 

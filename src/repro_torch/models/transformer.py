@@ -42,7 +42,7 @@ local/global pair.
 Under ``attention_impl="pallas"`` every norm runs the fused RMSNorm
 kernel and decode the flash decode kernel, beside flash attention.  The
 hybrid family is :mod:`repro_torch.models.hybrid` (its shared block is a
-:class:`Block`); the xLSTM family is a later slice of the port.
+:class:`Block`); the xLSTM family is :mod:`repro_torch.models.xlstm`.
 """
 
 from __future__ import annotations
@@ -248,7 +248,7 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not a "
                 f"transformer LM ({TRANSFORMER_FAMILIES}); the hybrid family "
-                "is HybridLM, and xLSTM ('ssm') is a later slice of the port")
+                "is HybridLM, and xLSTM ('ssm') is XLSTMLM")
         if cfg.attn_pattern == "local_global" and cfg.n_layers % 2:
             raise ValueError(f"{cfg.name}: local_global needs an even layer "
                              f"count, got {cfg.n_layers}")

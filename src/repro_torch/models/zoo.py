@@ -4,9 +4,10 @@ The counterpart of the reference's ``repro.models.zoo``.  The reference
 returns a bundle of pure functions over a params pytree; the port
 returns an ``nn.Module`` that holds its weights (fill them with
 ``init_params(generator)`` or load the reference's with the
-``params_from_jax`` of :mod:`repro_torch.models.transformer` or
-:mod:`repro_torch.models.hybrid`).  The dense, MoE, audio, VLM and
-hybrid families are ported; xLSTM is not yet.  The reference's
+``params_from_jax`` of :mod:`repro_torch.models.transformer`,
+:mod:`repro_torch.models.hybrid` or :mod:`repro_torch.models.xlstm`).
+Every family of the reference is ported: dense, MoE, audio, VLM, hybrid
+and xLSTM (``"ssm"``).  The reference's
 ``Model.loss``, ``batch_shapes`` and ``make_batch`` are functions of the
 model or its config here.
 """
@@ -23,12 +24,13 @@ from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.layers import cross_entropy
 from repro_torch.models.sharding import ModelContext
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.xlstm import XLSTMLM
 
 #: the port's language models: each has ``forward(batch, ctx,
 #: last_only)`` (token ids or a batch dict), ``init_cache(batch,
 #: max_len)``, ``decode_step(cache, tokens, pos, ctx)``,
 #: ``init_params(generator)`` and ``decayed()``
-LM = Union[TransformerLM, HybridLM]
+LM = Union[TransformerLM, HybridLM, XLSTMLM]
 
 
 def build_model(cfg: ArchConfig, device: "torch.device | str" = "cuda",
@@ -37,10 +39,9 @@ def build_model(cfg: ArchConfig, device: "torch.device | str" = "cuda",
     for ``"cpu"``), weights zero: matmul weights in bf16 to serve, or, with
     ``trainable``, every weight an f32 master that requires grad, which
     training updates.  Raises ``RuntimeError`` when ``device`` is CUDA and
-    no GPU is available, ``NotImplementedError`` for a family that is not
-    ported yet (xLSTM, ``"ssm"``)."""
+    no GPU is available, ``NotImplementedError`` for an unknown family."""
     device = resolve_device(device)
-    cls = HybridLM if cfg.family == "hybrid" else TransformerLM
+    cls = {"hybrid": HybridLM, "ssm": XLSTMLM}.get(cfg.family, TransformerLM)
     return cls(cfg, device, trainable)
 
 

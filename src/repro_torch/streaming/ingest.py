@@ -19,8 +19,12 @@ bounded queues, ack batching and consumer names, and NumPy int32
 batches.  One difference: a crashed consumer's thread returns, where the
 reference's polls its deregistered channel again at once until the
 loader closes (each poll returns ``None`` without waiting), and so takes
-the interpreter lock from the thread that launches the train step.  What
-is delivered, acked and redelivered is the reference's.
+the interpreter lock from the thread that launches the train step; and
+a consumer waiting on a full row queue gives up its row when it crashes
+or the loader closes (the row's message is unacked, so a crash
+redelivers it), where the reference's waits until a row is taken, for
+ever once the loader has closed.  What is delivered, acked and
+redelivered is the reference's.
 """
 
 from __future__ import annotations
@@ -106,7 +110,8 @@ class StreamingDataLoader:
                 with self._lock:
                     self.redeliveries_seen += 1
             toks = tokens_from_payload(msg.body, self.vocab, self.seq + 1)
-            self._row_q.put(toks)           # backpressure point
+            if not self._put_row(cid, toks):    # backpressure point
+                return                  # crashed or closed while waiting
             with self._lock:
                 self.messages_consumed += 1
             since_ack += 1
@@ -117,6 +122,18 @@ class StreamingDataLoader:
                 except KeyError:            # crashed holding this delivery,
                     return                  # which is redelivered
                 since_ack = 0
+
+    def _put_row(self, cid: str, toks: np.ndarray) -> bool:
+        """Put one row, waiting while the row queue is full; False, with the
+        row dropped, once the loader closes or ``cid`` is no longer live
+        (its unacked message is redelivered to a live consumer)."""
+        while True:
+            try:
+                self._row_q.put(toks, timeout=0.1)
+                return True
+            except queue.Full:
+                if self._stop.is_set() or cid not in self._consumer_ids:
+                    return False
 
     def _assemble(self) -> None:
         while not self._stop.is_set():

@@ -21,8 +21,13 @@ import ast
 import dataclasses
 import warnings
 
+import jax
 import pytest
 import torch
+
+# the reference runs on the CPU also where a GPU is present: the
+# tolerances here are set against its CPU results
+jax.config.update("jax_platforms", "cpu")
 
 import repro_torch
 from repro.core import campaign as ref_camp

@@ -37,9 +37,14 @@ import functools
 import importlib.util
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
+
+# the reference runs on the CPU also where a GPU is present: the
+# tolerances here are set against its CPU results
+jax.config.update("jax_platforms", "cpu")
 
 import repro_torch
 from repro.core import chaos as ref_chaos

@@ -25,9 +25,14 @@ against the reference's NumPy ``VectorizedStreamSim``, on the CPU.
   the cross-device tolerance.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
+
+# the reference runs on the CPU also where a GPU is present: the
+# tolerances here are set against its CPU results
+jax.config.update("jax_platforms", "cpu")
 
 import repro_torch
 from repro.core import jax_engine  # noqa: F401  (registers "jax" in ENGINES)

@@ -23,11 +23,16 @@ reference's NumPy ``VectorizedStreamSim``, on the CPU.
   against the CPU at the cross-device tolerance, counters exact.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from _hypothesis_compat import given, settings, st
+
+# the reference runs on the CPU also where a GPU is present: the
+# tolerances here are set against its CPU results
+jax.config.update("jax_platforms", "cpu")
 
 import repro_torch
 from repro.core import vectorized as ref_vec

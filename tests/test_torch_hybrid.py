@@ -21,6 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+# the reference runs on the CPU also where a GPU is present: the
+# tolerances here are set against its CPU results
+jax.config.update("jax_platforms", "cpu")
+
 from repro.configs import get_smoke_config as jax_smoke
 from repro.launch.serve import generate as jax_generate
 from repro.launch.steps import build_prefill_step as jax_prefill_step

@@ -162,13 +162,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.main(["--arch", "granite-8b-smoke", "--max-new", "2"])
 
 
-@pytest.mark.parametrize("family", ["ssm"])
-def test_unported_families_raise(family):
-    cfg = dataclasses.replace(get_smoke_config("granite-8b"), family=family)
-    with pytest.raises(NotImplementedError, match=family):
-        build_model(cfg, device="cpu")
-
-
 def test_model_context_and_params_from_jax_reject_bad_input():
     with pytest.raises(ValueError):
         ModelContext(attention_impl="flash")

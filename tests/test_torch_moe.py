@@ -45,7 +45,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import serve
 from repro_torch.launch.steps import build_prefill_step, build_serve_step
-from repro_torch.models import moe, transformer, zoo
+from repro_torch.models import moe, transformer, xlstm, zoo
 from repro_torch.models.sharding import ModelContext
 from repro_torch.models.transformer import params_from_jax, params_to_numpy
 
@@ -550,14 +550,19 @@ def test_loss_matches_reference(arch, masked):
 
 
 def test_build_model_builds_every_transformer_family_and_refuses_ssm():
+    """Every transformer family builds a ``TransformerLM``; the ``ssm``
+    family (xLSTM), which the port once refused, builds an ``XLSTMLM``,
+    and ``TransformerLM`` itself still refuses it."""
     for arch in ARCHS:
         cfg = get_smoke_config(arch)
         model = zoo.build_model(cfg, device="cpu")
         assert isinstance(model, transformer.TransformerLM)
         assert model.cfg is cfg
     xl = ArchConfig(**dataclasses.asdict(jax_smoke("xlstm-1.3b")))
+    model = zoo.build_model(xl, device="cpu")
+    assert isinstance(model, xlstm.XLSTMLM) and model.cfg is xl
     with pytest.raises(NotImplementedError, match="ssm"):
-        zoo.build_model(xl, device="cpu")
+        transformer.TransformerLM(xl, "cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -212,7 +212,8 @@ def _ref_leaf(tree: dict, name: str):
     return tree[parts[0]], False
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "gemma2-9b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "gemma2-9b", "zamba2-7b",
+                                  "xlstm-1.3b"])
 def test_decayed_sets_follow_the_reference_layout(arch):
     """The port decays exactly the parameters whose leaf in the reference's
     tree has rank >= 2; every reference leaf is some port parameter."""

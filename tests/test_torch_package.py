@@ -166,12 +166,35 @@ def test_port_exports_the_reference_moe_names(name):
     assert got.__module__ == "repro_torch.models.moe"
 
 
+#: the reference's xLSTM functions and constants, which
+#: ``repro_torch.models.xlstm`` mirrors (the mesh paths,
+#: ``mlstm_seq_parallel`` and ``_mlstm_rank_summary``, wait for the mesh)
+XLSTM_NAMES = ("MLSTM_CHUNK", "IGATE_CLAMP", "mlstm_chunked",
+               "mlstm_decode_step", "slstm_scan", "slstm_decode_step",
+               "init_xlstm_state", "slstm_flags")
+
+
+@pytest.mark.parametrize("name", XLSTM_NAMES)
+def test_port_exports_the_reference_xlstm_names(name):
+    from repro.models import xlstm as ref_xlstm
+    from repro_torch.models import xlstm as port_xlstm
+    want, got = getattr(ref_xlstm, name), getattr(port_xlstm, name)
+    assert type(got) is type(want)
+    if callable(want):
+        assert got.__name__ == want.__name__
+        assert got.__module__ == "repro_torch.models.xlstm"
+    else:
+        assert got == want
+
+
 #: the configs of the MoE, audio and VLM slice
 FAMILY_SLICE_CONFIGS = ("qwen3_moe_30b", "moonshot_v1_16b", "musicgen_large",
                         "pixtral_12b")
+#: the config of the xLSTM slice
+XLSTM_SLICE_CONFIGS = ("xlstm_1_3b",)
 
 
-@pytest.mark.parametrize("module", FAMILY_SLICE_CONFIGS)
+@pytest.mark.parametrize("module", FAMILY_SLICE_CONFIGS + XLSTM_SLICE_CONFIGS)
 def test_port_exports_the_reference_configs(module):
     import importlib
     ref = importlib.import_module(f"repro.configs.{module}")
@@ -186,8 +209,7 @@ def test_port_exports_the_reference_configs(module):
 def test_port_registers_the_reference_architectures_in_order():
     import repro.configs
     import repro_torch.configs
-    assert repro_torch.configs.ARCH_NAMES == tuple(
-        n for n in repro.configs.ARCH_NAMES if n != "xlstm-1.3b")
+    assert repro_torch.configs.ARCH_NAMES == repro.configs.ARCH_NAMES
 
 
 def test_import_scan_covers_the_moe_audio_vlm_modules():
@@ -197,6 +219,14 @@ def test_import_scan_covers_the_moe_audio_vlm_modules():
                 "src/repro_torch/models/zoo.py",
                 "chip_probes/serve_families.py") + tuple(
             f"src/repro_torch/configs/{m}.py" for m in FAMILY_SLICE_CONFIGS):
+        assert rel in scanned, rel
+
+
+def test_import_scan_covers_the_xlstm_modules():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("src/repro_torch/models/xlstm.py",
+                "chip_probes/serve_xlstm.py") + tuple(
+            f"src/repro_torch/configs/{m}.py" for m in XLSTM_SLICE_CONFIGS):
         assert rel in scanned, rel
 
 

@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+# the reference runs on the CPU also where a GPU is present: the
+# tolerances here are set against its CPU results
+jax.config.update("jax_platforms", "cpu")
+
 from repro.core import jax_device_loop as jdl
 from repro_torch.kernels.pump_assign import pump_assign, pump_assign_ref
 

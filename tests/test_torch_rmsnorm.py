@@ -14,10 +14,15 @@ reference's, on the CPU.
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+# the reference runs on the CPU also where a GPU is present: the
+# tolerances here are set against its CPU results
+jax.config.update("jax_platforms", "cpu")
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref

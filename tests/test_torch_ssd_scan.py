@@ -31,6 +31,10 @@ import numpy as np
 import pytest
 import torch
 
+# the reference runs on the CPU also where a GPU is present: the
+# tolerances here are set against its CPU results
+jax.config.update("jax_platforms", "cpu")
+
 from repro.configs import get_smoke_config as jax_smoke
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref

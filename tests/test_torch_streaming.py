@@ -420,6 +420,36 @@ def test_crashed_consumer_thread_ends():
         loader.close()
 
 
+def test_consumer_waiting_on_a_full_row_queue_ends_on_crash_and_close():
+    """Nothing drains the loader, so the staging buffer and then the row
+    queue fill and both consumers wait to put a row.  A crash ends the
+    crashed consumer's wait and its thread, with nothing drained and no
+    poll after the crash (its row's message, unacked, is redelivered);
+    closing the loader ends the other's."""
+    broker = _recording(port_streaming)
+    loader = port_streaming.StreamingDataLoader(
+        broker, port_wl.DSTREAM, vocab_size=64, seq_len=8, batch_size=1,
+        n_consumers=2, ack_batch=4)
+    ps = _producers(port_streaming, broker, ("p0", "p1"), 200, rate=2000.0)
+    try:
+        t0 = time.monotonic()
+        while not (loader._row_q.full() and loader._staging.full()):
+            assert time.monotonic() - t0 < 10, "the row queue never filled"
+            time.sleep(0.01)
+        time.sleep(0.3)                 # both consumers hold a row
+        loader.crash_consumer("ingest-0")
+        loader._threads[0].join(timeout=2)
+        assert not loader._threads[0].is_alive()
+        assert broker.polls_after_crash["ingest-0"] == 0
+        assert loader._threads[1].is_alive()
+    finally:
+        for p in ps:
+            p.stop(join=False)
+        loader.close()
+    loader._threads[1].join(timeout=2)
+    assert not loader._threads[1].is_alive()
+
+
 def test_crashed_consumer_idle_thread_ends():
     """With nothing to consume, the crash wakes the consumer's wait and
     its thread returns."""
@@ -696,5 +726,51 @@ def report() -> None:
         loader.close()
 
 
+def report_crash_join(runs: int = 12) -> None:
+    """Print, for ``runs`` runs of the streamed run that
+    ``test_streamed_run_with_crash_and_feedback`` makes, the seconds from
+    the consumer crash to the end of the crashed consumer's thread, the
+    seconds from that end to the end of the run, and the line the thread
+    was waiting on at the crash.  Run it beside a loaded test run (the
+    join once timed out under ``-n 6``).
+    ``PYTHONPATH=src python tests/test_torch_streaming.py join``"""
+    import traceback
+    from repro_torch.streaming.ingest import StreamingDataLoader as Loader
+    for k in range(runs):
+        ends, crash = {}, {}
+        loop, crash_consumer = Loader._consume_loop, Loader.crash_consumer
+
+        def timed_loop(self, cid):
+            try:
+                return loop(self, cid)
+            finally:
+                ends[cid] = time.perf_counter()
+
+        def timed_crash(self, cid):
+            frame = sys._current_frames().get(
+                self._threads[int(cid.split("-")[1])].ident)
+            crash["waiting_on"] = (traceback.format_stack(frame)[-1]
+                                   .strip().splitlines()[-1].strip()
+                                   if frame else None)
+            crash["t"] = time.perf_counter()
+            return crash_consumer(self, cid)
+
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(Loader, "_consume_loop", timed_loop)
+            m.setattr(Loader, "crash_consumer", timed_crash)
+            out = port_train.run(_args(device="cpu"))
+        t_run = time.perf_counter()
+        thread = out["stream"][1]._threads[0]
+        thread.join(timeout=30)
+        end = ends.get("ingest-0", float("nan"))
+        print(dict(run=k, crash_to_end_s=end - crash["t"],
+                   end_before_run_end_s=t_run - end,
+                   alive=thread.is_alive(),
+                   waiting_on=crash["waiting_on"]), flush=True)
+
+
 if __name__ == "__main__":
-    report()
+    if sys.argv[1:] == ["join"]:
+        report_crash_join()
+    else:
+        report()

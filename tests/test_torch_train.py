@@ -34,6 +34,7 @@ from repro.data import SyntheticTokens as JaxTokens
 from repro.launch.steps import build_train_step as jax_train_step
 from repro.models import hybrid as ref_hybrid
 from repro.models import transformer as ref_transformer
+from repro.models import xlstm as ref_xlstm
 from repro.models.zoo import build_model as jax_build
 from repro.optim import AdamW as JaxAdamW
 from repro_torch.configs import get_smoke_config
@@ -41,7 +42,7 @@ from repro_torch.data import SyntheticTokens
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import build_train_step
 from repro_torch.launch.train import run as train_run
-from repro_torch.models import hybrid, mamba2, transformer, zoo
+from repro_torch.models import hybrid, mamba2, transformer, xlstm, zoo
 from repro_torch.models.sharding import ModelContext
 from repro_torch.models.zoo import build_model
 from repro_torch.optim import AdamW
@@ -61,7 +62,7 @@ DW_TOL_F32 = 1e-3
 
 
 def _module(cfg):
-    return hybrid if cfg.family == "hybrid" else transformer
+    return {"hybrid": hybrid, "ssm": xlstm}.get(cfg.family, transformer)
 
 
 @functools.cache
@@ -156,14 +157,14 @@ def test_loss_matches_reference(arch, masked):
 
 def _f32(monkeypatch) -> None:
     """Float32 activations in both packages: the reference's hard-coded
-    bf16 cast of the embedding table patched to float32 in its two model
+    bf16 cast of the embedding table patched to float32 in its three model
     modules, and the port's ``ACT_DTYPE``."""
     ns = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
                                   if not k.startswith("__")})
     ns.bfloat16 = jnp.float32
-    for mod in (ref_hybrid, ref_transformer):
+    for mod in (ref_hybrid, ref_transformer, ref_xlstm):
         monkeypatch.setattr(mod, "jnp", ns)
-    for mod in (hybrid, transformer):
+    for mod in (hybrid, transformer, xlstm):
         monkeypatch.setattr(mod, "ACT_DTYPE", torch.float32)
 
 
