@@ -17,7 +17,10 @@ hd 64) and gemma2-9b's shapes and the edge cases, each timed on the
 kernel its route rule picks (the tensor-core kernel for bf16 at hd 64,
 112 and 128), and both kernels timed at granite's and zamba2's shapes
 with the registers and CTAs an SM they get; RMSNorm at every served
-model's width (2048 to 7168), each timed; flash decode on the models'
+model's width (2048 to 7168), at the prefill's rows and at the decode
+steps' 32 and 128, each call and its device time beside ``F.rms_norm``'s
+and the bytes bound, with the route, grid and registers the kernel's C
+entry point picks; flash decode on the models'
 full caches, gemma2's window, ragged positions and one long request,
 with the cache past each position overwritten, and at the eight serving
 shapes (granite 128 x 2048 and 32 x 8192, zamba2 32 x 4096 and 8 x
@@ -404,16 +407,23 @@ ATTN_CASES = (
     ("ragged S", "bfloat16", 1, 1000, 1000, 8, 2, 128, True, 0, 0.0),
     ("ragged f32 window softcap", "float32", 1, 777, 777, 4, 2, 64, True, 100, 30.0),
 )
-#: RMSNorm checks: (case, dtype, rows, D), each timed.  The first
-#: (granite-8b's prefill rows) is in the kernels line, with zamba2's
-#: out_norm over d_in 7168 and the library's times beside it.
+#: RMSNorm checks: (case, dtype, rows, D), each timed two ways beside
+#: ``F.rms_norm``.  The first (granite-8b's prefill rows) is in the kernels
+#: line.  Prefill rows are 4 x 4096 tokens (qwen3's 2 x 2048); decode rows
+#: are the requests of a serving decode step: 128 for granite, qwen3 and
+#: pixtral, 32 for zamba2, moonshot, musicgen (d 2048, as xLSTM's norm)
+#: and xLSTM.
 RMS_CASES = (
     ("granite-8b prefill", "bfloat16", 16384, 4096),
     ("zamba2-7b out_norm", "bfloat16", 16384, 7168),
     ("qwen3-moe-30b-a3b prefill", "bfloat16", 4096, 2048),
     ("musicgen-large prefill", "bfloat16", 16384, 2048),
     ("pixtral-12b prefill", "bfloat16", 16384, 5120),
+    ("granite-8b decode", "bfloat16", 128, 4096),
+    ("pixtral-12b decode", "bfloat16", 128, 5120),
+    ("qwen3-moe-30b-a3b decode", "bfloat16", 128, 2048),
     ("zamba2-7b decode", "bfloat16", 32, 3584),
+    ("zamba2-7b decode out_norm", "bfloat16", 32, 7168),
     ("xlstm-1.3b prefill norm", "bfloat16", 16384, 2048),
     ("xlstm-1.3b prefill out_norm", "bfloat16", 16384, 4096),
     ("xlstm-1.3b decode norm", "bfloat16", 32, 2048),
@@ -969,17 +979,19 @@ def check_flash(dev) -> dict:
 def check_rmsnorm(dev) -> dict:
     """The RMSNorm kernel against ``rmsnorm_ref`` on the card at every
     ``RMS_CASES`` shape (``tests/test_kernels.py``'s tolerances: bf16
-    2e-2, f32 1e-5), each timed beside its bound and one ``F.rms_norm``
-    call's time; at the first its time,
-    the plain version's, one
-    ``F.rms_norm`` call's (weight ``1 + w`` in x's dtype, made outside
-    the timing, so that it takes its fused path) and the bound; at
-    zamba2's out_norm width the kernel's and the library's times."""
+    2e-2, f32 1e-5).  Each case is timed two ways, the kernel and one
+    ``F.rms_norm`` call (weight ``1 + w`` in x's dtype, made outside the
+    timing, so that it takes its fused path) alike: the call, ``ms``
+    (``_cuda_ms``: CUDA events around a host loop, so at decode's few
+    rows the host's cost a call) and the device time, ``device_ms``
+    (``_graph_ms``: the calls captured in one CUDA graph); beside them the
+    bytes bound and the C entry point's plan (route, threads, grid,
+    registers).  The plain version is timed at the first case."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import plan, rmsnorm, rmsnorm_ref
     g = torch.Generator(dev).manual_seed(1)
-    rows, timed = [], []
+    rows, first = [], None
     for case, dtype, R, D in RMS_CASES:
         x = torch.randn(R, D, generator=g, device=dev).to(getattr(torch, dtype))
         w = 0.1 * torch.randn(D, generator=g, device=dev)
@@ -993,38 +1005,34 @@ def check_rmsnorm(dev) -> dict:
             raise AssertionError(f"rmsnorm differs from its plain version on "
                                  f"{case}: {diff.max().item()} (tol {tol})")
         w1 = (1 + w).to(x.dtype)
-        rows.append(dict(case=case, max_abs_err=diff.max().item(), tol=tol,
-                         ms=_cuda_ms(lambda: rmsnorm(x, w), 20, 3),
-                         library_ms=_cuda_ms(
-                             lambda: F.rms_norm(x, (D,), w1, 1e-6), 20, 3),
-                         bound_ms=_bound(2 * x.numel() * x.element_size()
-                                         + 4 * D, 5 * x.numel(),
-                                         F32_FLOPS)["bound_ms"]))
-        if len(timed) < 2:
-            timed.append((x, w))
-    res = {}
-    for tag, (x, w) in zip(("", "zamba2_"), timed):
-        D = x.shape[-1]
-        w1 = (1 + w).to(x.dtype)
-        res[tag + "ms"] = _cuda_ms(lambda: rmsnorm(x, w), 20)
-        res[tag + "library_ms"] = _cuda_ms(
-            lambda: F.rms_norm(x, (D,), w1, 1e-6), 20)
-        res[tag + "bound_ms"] = (2 * x.numel() * x.element_size()
-                                 + 4 * D) / HBM_BPS * 1e3
-    x, w = timed[0]
+        kernel = functools.partial(rmsnorm, x, w)
+        library = functools.partial(F.rms_norm, x, (D,), w1, 1e-6)
+        # bytes: x read once, y written once, w read once; five operations
+        # an element (square-add, scale, 1 + w, product) in f32
+        bound = _bound(2 * x.numel() * x.element_size() + 4 * D,
+                       5 * x.numel(), F32_FLOPS)
+        rows.append(dict(
+            case=case, dtype=dtype, rows=R, D=D,
+            max_abs_err=diff.max().item(), tol=tol,
+            ms=_cuda_ms(kernel, 20), device_ms=_graph_ms(kernel, 20),
+            library_ms=_cuda_ms(library, 20),
+            library_device_ms=_graph_ms(library, 20),
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+            plan=plan(x, w, got)))
+        if first is None:
+            first = (x, w)
+        del x, w, got, want, diff, w1, kernel, library
+    x, w = first
     plain_ms = _cuda_ms(lambda: rmsnorm_ref(x, w), 20)
-    # bytes: x read once, y written once, w read once; five operations an
-    # element (square-add, scale, 1 + w, product) in f32
-    bound = _bound(2 * x.numel() * x.element_size() + 4 * x.shape[-1],
-                   5 * x.numel(), F32_FLOPS)
+    top = rows[0]
     return dict(name="rmsnorm", route="cuda",
                 source="src/repro_torch/kernels/csrc/rmsnorm.cu",
                 replaces="src/repro/kernels/rmsnorm.py:23", launches=0,
-                max_abs_err=rows[0]["max_abs_err"], ms=res["ms"],
-                plain_ms=plain_ms, **bound, library_ms=res["library_ms"],
-                zamba2_ms=res["zamba2_ms"],
-                zamba2_library_ms=res["zamba2_library_ms"],
-                zamba2_bound_ms=res["zamba2_bound_ms"], cases=rows,
+                max_abs_err=top["max_abs_err"], ms=top["ms"],
+                device_ms=top["device_ms"], plain_ms=plain_ms,
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"],
+                library_device_ms=top["library_device_ms"], cases=rows,
                 shape=dict(rows=x.shape[0], D=x.shape[1], dtype=str(x.dtype)))
 
 

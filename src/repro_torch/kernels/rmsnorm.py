@@ -6,6 +6,12 @@ with float32 statistics, cast back to x's dtype.
 ``kernels/rmsnorm.py``) on CUDA tensors, and runs :func:`rmsnorm_ref`,
 the plain PyTorch version (the reference's ``layers.rmsnorm``, its
 oracle), on CPU tensors.  A CUDA tensor launches the kernel or raises.
+
+Decode calls it on a few rows, where the host's cost a call is the time,
+so the launch path is short: the checks are attribute comparisons, the
+output is the one allocation, and the C entry point decides the route
+(16-byte vectors held in registers, or a loop) and the grid (one CTA a
+row) itself.
 """
 
 from __future__ import annotations
@@ -18,6 +24,10 @@ import torch
 from repro_torch.kernels._grad import refuse_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: ``rmsnorm_plan``'s fields, in order
+PLAN_FIELDS = ("vector", "loop", "threads", "units_per_thread", "grid",
+               "ctas_per_sm", "registers", "local_bytes", "vec", "many",
+               "stream")
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -30,29 +40,44 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return out.to(dt)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> None:
-    """Raise unless the kernel (or, on the CPU, the plain version) can
-    take these tensors."""
-    if x.dim() < 1 or x.shape[-1] < 1 or w.shape != x.shape[-1:]:
-        raise ValueError(f"rmsnorm: want x (..., D) and w (D,); got "
-                         f"{tuple(x.shape)}, {tuple(w.shape)}")
-    if x.dtype not in _DTYPE_CODE or w.dtype != torch.float32:
-        raise TypeError(f"rmsnorm: want x float32 or bfloat16 and w "
-                        f"float32; got {x.dtype}, {w.dtype}")
-    if x.device != w.device:
-        raise ValueError("rmsnorm: tensors on more than one device")
+def _rows(shape: torch.Size, strides: tuple) -> tuple[int, int]:
+    """(rows, row stride) of a tensor seen as (rows, D) without a copy, as
+    ``x.view(-1, D)`` sees it; ``ValueError`` where that view fails (the
+    leading dims do not merge into one stride)."""
+    D = shape[-1]
+    if len(shape) == 2:
+        return shape[0], strides[0]
+    rows, stride, outer = 1, D, None
+    for n in shape[:-1]:
+        rows *= n
+    if rows == 0:
+        return 0, D
+    for i in range(len(shape) - 2, -1, -1):
+        n = shape[i]
+        if n == 1:
+            continue
+        if outer is None:
+            stride = strides[i]
+        elif strides[i] != outer:
+            raise ValueError("rmsnorm: x's rows must be one stride apart")
+        outer = strides[i] * n
+    return rows, stride
 
 
 @functools.cache
-def _launcher():
-    """The kernel's C entry point, built and typed once, on first use."""
+def _cuda():
+    """The kernel's C entry point, built and typed once, on first use, with
+    the current device's index and its current stream (the raw
+    ``cudaStream_t``, read on every call, so that a capture on a side
+    stream sees the launch).  The entry point is called with the GIL held
+    (``PyDLL``): it only enqueues a launch, and releasing and taking back
+    the GIL would cost more than the call."""
     from repro_torch.kernels import _build
-    fn = _build.load("rmsnorm").rmsnorm_launch
+    fn = ctypes.PyDLL(str(_build.build("rmsnorm"))).rmsnorm_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_int64, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    return fn, torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6
@@ -65,35 +90,44 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6
     stride apart with the last dim contiguous (any view that reshapes to
     (rows, D) without a copy, e.g. ``x[:, -1:]``); the kernel reads them
     in place."""
-    _check(x, w)
-    refuse_grad("rmsnorm", x, w)
-    if x.device.type == "cpu":
+    shape = x.shape
+    if not shape or shape[-1] < 1 or w.shape != (shape[-1],):
+        raise ValueError(f"rmsnorm: want x (..., D) and w (D,); got "
+                         f"{tuple(shape)}, {tuple(w.shape)}")
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None or w.dtype != torch.float32:
+        raise TypeError(f"rmsnorm: want x float32 or bfloat16 and w "
+                        f"float32; got {x.dtype}, {w.dtype}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        refuse_grad("rmsnorm", x, w)
+    if not x.is_cuda:
+        if x.device != w.device:
+            raise ValueError("rmsnorm: tensors on more than one device")
+        if x.device.type != "cpu":
+            raise ValueError(f"rmsnorm: unsupported device {x.device}")
         return rmsnorm_ref(x, w, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"rmsnorm: tensors on {x.device}, current device "
-                         f"cuda:{torch.cuda.current_device()}")
-    D = x.shape[-1]
-    try:
-        rows = x.view(-1, D)
-    except RuntimeError:
-        raise ValueError("rmsnorm: x's rows must be one stride apart") from None
-    if (rows.stride(1) != 1 and D > 1) or not w.is_contiguous():
+    launch, current_device, current_stream = _cuda()
+    dev = x.get_device()
+    if w.get_device() != dev:
+        raise ValueError("rmsnorm: tensors on more than one device")
+    if dev != current_device():
+        raise ValueError(f"rmsnorm: tensors on cuda:{dev}, current device "
+                         f"cuda:{current_device()}")
+    D = shape[-1]
+    strides = x.stride()
+    if (strides[-1] != 1 and D > 1) or not w.is_contiguous():
         raise ValueError("rmsnorm: x's last dim and w must be contiguous")
-    if rows.shape[0] >= 2 ** 31:
-        raise ValueError(f"rmsnorm: {rows.shape[0]} rows >= 2^31")
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if rows.shape[0] == 0:
+    R, row_stride = _rows(shape, strides)
+    if R >= 2 ** 31:
+        raise ValueError(f"rmsnorm: {R} rows >= 2^31")
+    # a contiguous x's own layout is contiguous, and the keyword costs
+    out = (torch.empty_like(x) if x.is_contiguous() else
+           torch.empty_like(x, memory_format=torch.contiguous_format))
+    if R == 0:
         return out
-    vec = 16 // x.element_size()
-    vector = (D % vec == 0 and rows.stride(0) % vec == 0
-              and rows.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    err = _launcher()(rows.data_ptr(), w.data_ptr(), out.data_ptr(),
-                      _DTYPE_CODE[x.dtype], rows.shape[0], D, rows.stride(0),
-                      float(eps), int(vector),
-                      torch.cuda.current_stream().cuda_stream)
-    if err != 0:
+    err = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), code, R, D,
+                 row_stride, eps, current_stream(dev))
+    if err:
         raise RuntimeError(f"rmsnorm: kernel launch failed "
                            f"(cudaGetLastError {err})")
     rmsnorm.launches += 1
@@ -102,3 +136,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6
 
 #: kernel launches so far (CPU calls run the plain version and do not count)
 rmsnorm.launches = 0  # type: ignore[attr-defined]
+
+
+def plan(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> dict:
+    """What a CUDA call on ``x``, ``w`` into ``out`` launches, as the C
+    entry point decides it (``PLAN_FIELDS``).  Launches nothing."""
+    from repro_torch.kernels import _build
+    fn = _build.load("rmsnorm").rmsnorm_plan
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_int64, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    R, row_stride = _rows(x.shape, x.stride())
+    vals = (ctypes.c_int * len(PLAN_FIELDS))()
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+             _DTYPE_CODE[x.dtype], R, x.shape[-1], row_stride, vals)
+    if err:
+        raise RuntimeError(f"rmsnorm_plan failed (CUDA error {err})")
+    return dict(zip(PLAN_FIELDS, vals))
