@@ -53,8 +53,9 @@ tensor-core kernel):
   ``torch.profiler`` breakdown of the Fig 7b dts cell;
 * the flow cells — ``run_many`` on two overflow-regime cells of
   ``benchmarks/bench_overflow_regime.py`` (feedback of dstream on dts
-  under a byte cap: the parity cell, 4 x 4, and the scale smoke, 64 x
-  64, 8192 messages each), which take the cohort engine's credit flow
+  under a byte cap: the parity cell, 4 x 4 x 4096 messages, and the
+  scale smoke, 64 x 64 x 6144, both cut in depth from the bench's
+  8192), which take the cohort engine's credit flow
   and reject-publish overflow, three seed-lanes each, warm, timed
   ``COHORT_REPEATS`` times: every lane consuming every message and
   rejecting publishes (the parity cell's also withholding confirms), no
@@ -94,8 +95,9 @@ tensor-core kernel):
   reference's parity bands are defined against, which runs on the
   host), one line per part with the heap engine's wall, events and
   events a second on the host CPU beside the card engine's wall: (a)
-  the reference's Fig 4/6/7 parity grid (work sharing and feedback of
-  dstream at 4096 messages, broadcast+gather of generic at 400, on dts,
+  the reference's Fig 4/6/7 parity grid cut in depth (work sharing and
+  feedback of dstream at 1024 messages, broadcast+gather of generic at
+  100, where the reference's test runs 4096 and 400, on dts,
   prs-haproxy and mss at 8 consumers, seed 0, jitter 0) through
   ``run_pattern`` on each engine, within the reference's bands and
   with equal message counts; (b) the chaos phase's 15 card runs against
@@ -180,17 +182,29 @@ tensor-core kernel):
   layers (two macro-blocks and a tail layer), 8 steps, each of 4 x 4096
   tokens in 4 microbatches, and xlstm-1.3b at full width cut to 8 of 48
   blocks (block 7 its sLSTM block), 12 steps of 4 x 4096 tokens in its
-  config's one microbatch, with their losses, grad norms, step walls,
-  tokens/s, peak memory and one profiled step (by kernel kind); every
-  loss finite, the first near ln V and the last at least 0.3 below it;
-  the same three steps of the three smoke configs on the card and on the
-  CPU,
-  compared by their losses, grad norms and each weight's trained change;
+  config's one microbatch; then, each of 4 x 4096 positions in 4
+  microbatches, qwen3-moe-30b-a3b and moonshot-v1-16b-a3b cut to 4 of 48
+  layers, 3 steps each, musicgen-large at full depth on frame embeddings
+  (``zoo.make_batch``) with ``SyntheticTokens`` labels, 4 steps, and
+  pixtral-12b cut to 8 of 40 layers on 1024 patch embeddings before 3072
+  ``SyntheticTokens`` positions, 4 steps; with their losses, grad norms,
+  step walls, tokens/s, peak memory and, for granite, zamba2, xLSTM and
+  qwen3, one profiled step (by kernel kind; qwen3's also with
+  ``moe_dense``'s share of the device time under autograd: forward,
+  recompute and backward); every loss finite, the first near ln V and
+  the last at least 0.3 below it; musicgen's first 2 steps again under
+  ``remat_policy="dots"`` from the same weights and batches (the first
+  loss equal, the grad norms within 1e-5, both peaks and step walls);
+  the same three steps of the seven smoke configs (the families' batch
+  forms) on the card and on the CPU,
+  compared by their losses, grad norms and each weight's trained change
+  (an expert flip between the devices counted and named);
   ``launch.train.run`` on the card resuming from its
   checkpoint; and no model kernel launched in the phase, as training
   runs the plain paths.  Then the kernels' forward-only guard: a train
-  step under ``attention_impl="pallas"`` and each model kernel called
-  with an input that requires grad raise;
+  step of granite-8b's and of qwen3-moe-30b-a3b's smoke config under
+  ``attention_impl="pallas"`` and each model kernel called with an input
+  that requires grad raise;
 * the stream phase — training on the streamed edge-to-HPC data plane
   (edge producers publishing Dstream payloads into the real-time broker,
   a consumer group assembling token rows, steering feedback, a consumer
@@ -292,10 +306,14 @@ OVERFLOW_STRESS = dict(confirm_window=64, prefetch=16, ack_batch=4,
 #: parity cell's cap sits 6% above the credit threshold (400 a producer)
 #: with jitter off, so both mechanisms fire; the scale smoke's consumers
 #: take 250 µs each per consumer, so 64 producers outpace the drain and
-#: the queues pin at their cap (reject-publish alone)
+#: the queues pin at their cap (reject-publish alone).  Both cut in depth
+#: from the bench's 8192 messages to make room for the MoE, audio and
+#: VLM train runs: the parity cell to 4096 (68 rejected and 256 withheld
+#: a lane; at 3072 and 2048 no publish is rejected), the scale smoke to
+#: 6144 (1077 to 3115 rejected a lane; at 4096 none)
 FLOW_CELLS = (
-    ("parity", 4, 8192, int(400 * 4 * 1.06), dict(jitter=0.0)),
-    ("scale smoke", 64, 8192, 2048, dict(consumer_proc_s=250e-6 * 64)),
+    ("parity", 4, 4096, int(400 * 4 * 1.06), dict(jitter=0.0)),
+    ("scale smoke", 64, 6144, 2048, dict(consumer_proc_s=250e-6 * 64)),
 )
 #: the flow cell run on the card and on the CPU, compared: work sharing
 #: of dstream on dts, 1 x 1, 1536 msgs, a 424-message cap (both
@@ -348,10 +366,14 @@ WAVE = dict(engine="jax", jax_device_loop=True)
 #: the heap parity phase (a): the reference's Fig 4/6/7 parity grid
 #: (``tests/test_engine_parity.py``), (pattern, workload, messages) on
 #: each of ``HEAP_ARCHS`` at ``HEAP_NC`` consumers, seed 0, jitter 0,
-#: run once on the card's cohort engine and once on the heap engine
-HEAP_GRID = (("work_sharing", "dstream", 4096),
-             ("feedback", "dstream", 4096),
-             ("broadcast_gather", "generic", 400))
+#: run once on the card's cohort engine and once on the heap engine; cut
+#: in depth from the reference's 4096 and 400 messages to 1024 and 100 to
+#: make room for the MoE, audio and VLM train runs (every band is met at
+#: 1024 and at 2048, the widest deviation 0.0108 of a 0.02 band; 2048
+#: saved too little)
+HEAP_GRID = (("work_sharing", "dstream", 1024),
+             ("feedback", "dstream", 1024),
+             ("broadcast_gather", "generic", 100))
 HEAP_ARCHS = ("dts", "prs-haproxy", "mss")
 HEAP_NC = 8
 #: chaos scenario -> its parity band's scope (``tests/test_chaos.py``)
@@ -592,13 +614,39 @@ ROW_ATOL = 1e-4
 #: since each microbatch runs the sLSTM's 4096 positions one at a time
 #: again; 12 steps, since 8 in 4 microbatches lowered the loss by 0.24
 #: (on an H100 at 700 W).  granite-8b runs 12 steps, 16 before xLSTM
-#: joined the phase, to make room for it
+#: joined the phase, to make room for it.  The MoE, audio and VLM families
+#: (counted from the reference's ``abstract_params``): qwen3-moe-30b-a3b
+#: to 4 of 48 layers (3114813440 parameters, 49.8 GB; all 48 would need
+#: 488.5 GB), moonshot-v1-16b-a3b to 4 of 48 (3022538752, 48.4 GB; 462.2
+#: GB), musicgen-large at full depth (3229812736, 51.7 GB), pixtral-12b to
+#: 8 of 40 (3523302400, 56.4 GB; 196.0 GB); pixtral's 8 microbatches
+#: cannot divide a batch of 4.  Each takes the fewest steps whose last
+#: loss lies ``TRAIN_DROP`` below its first with room (the 5-step warmup
+#: makes the first 7 losses those of any longer run; 10-step runs on an
+#: H100 at 700 W): musicgen 4 (drops 0.094, 0.246, 0.359, 0.301 after
+#: 1-4 steps, then a spike), pixtral 4 (0.106, 0.320, 0.836: 3 steps
+#: clear the limit by 0.020 only); the MoE models 3, though 2 clear it
+#: (qwen3 0.438, moonshot 0.530), so that the median step wall is not
+#: the first step's, which pays the run's first use of its shapes
 TRAIN_RUNS = (
     ("granite-8b", dict(n_layers=8), 12, 4),
     ("zamba2-7b", dict(n_layers=13, n_macro_blocks=2, tail_mamba_layers=1),
      8, 4),
     ("xlstm-1.3b", dict(n_layers=8), 12, 1),
+    ("qwen3-moe-30b-a3b", dict(n_layers=4), 3, 4),
+    ("moonshot-v1-16b-a3b", dict(n_layers=4), 3, 4),
+    ("musicgen-large", {}, 4, 4),
+    ("pixtral-12b", dict(n_layers=8), 4, 4),
 )
+#: the runs with a profiled step: by kernel kind, and for an MoE model
+#: ``moe_dense``'s share of the device time under autograd
+TRAIN_PROFILED = ("granite-8b", "zamba2-7b", "xlstm-1.3b",
+                  "qwen3-moe-30b-a3b")
+#: the remat policies against each other: this run's first TRAIN_DOTS_STEPS
+#: steps (remat_policy "full", its config's) again under "dots" from the
+#: same weights and batches: the first loss equal, the grad norms within
+#: TRAIN_DOTS_RTOL relative
+TRAIN_DOTS, TRAIN_DOTS_STEPS, TRAIN_DOTS_RTOL = "musicgen-large", 2, 1e-5
 #: train_4k's sequence (``configs/shapes.py``); its batch of 256 cut to 4
 TRAIN_BATCH, TRAIN_SEQ = 4, 4096
 #: ``launch/train.py``'s peak learning rate for the full-width runs
@@ -613,8 +661,10 @@ TRAIN_DROP = 0.3
 #: change ``dW = w_3 - w_0`` within TRAIN_XDEV_DW of the CPU's,
 #: ``||dW_gpu - dW_cpu|| / ||dW_cpu||`` (bf16 activations round
 #: differently on the two devices; a step that updates nothing reads 1.0)
-TRAIN_XDEV = dict(archs=("granite-8b", "zamba2-7b", "xlstm-1.3b"), steps=3,
-                  M=2, batch=4, seq=64, lr=1e-3)
+TRAIN_XDEV = dict(archs=("granite-8b", "zamba2-7b", "xlstm-1.3b",
+                         "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                         "musicgen-large", "pixtral-12b"),
+                  steps=3, M=2, batch=4, seq=64, lr=1e-3)
 TRAIN_XDEV_RTOL = 2e-2
 TRAIN_XDEV_DW = 0.3
 #: the stream phase's entry-point run, ``launch.train.run`` at the
@@ -3254,12 +3304,96 @@ def _token_batches(cfg, n: int, batch: int, seq: int, dev) -> list:
             for _ in range(n)]
 
 
-def drive_train(arch: str, cut: dict, steps: int, M: int, dev) -> dict:
+def _train_batches(cfg, n: int, batch: int, seq: int, dev) -> list:
+    """``n`` training batches of ``cfg``'s family, ``seq`` positions each,
+    on ``dev``: ``SyntheticTokens(seed=0)`` ids and labels; for audio,
+    ``zoo.make_batch``'s frame embeddings (generator seed 0) with
+    ``SyntheticTokens`` labels; for vlm, ``make_batch``'s ``num_patches``
+    patch embeddings before ``SyntheticTokens`` rows of the other ``seq -
+    num_patches`` positions (the loss reads the text positions only)."""
+    import torch
+    from repro_torch.models import zoo
+    if cfg.family not in ("audio", "vlm"):
+        return _token_batches(cfg, n, batch, seq, dev)
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    g = torch.Generator(dev).manual_seed(0)
+    out = []
+    for toks in _token_batches(cfg, n, batch, seq - P, dev):
+        emb = zoo.make_batch(cfg, g, batch, seq)
+        if cfg.family == "audio":
+            out.append(dict(embeds=emb["embeds"], labels=toks["labels"]))
+        else:
+            out.append(dict(toks, patch_embeds=emb["patch_embeds"]))
+    return out
+
+
+def _autograd_range_kernels(prof, names: tuple) -> dict:
+    """For each profiler range of ``names`` in a train step: the device
+    time (µs) of the kernels launched inside its calls (forward, and the
+    recompute of a remat unit) and by the backward of the ops its forward
+    calls ran (autograd's ``evaluate_function`` events carry the sequence
+    number and forward thread of the op whose node they run), each launch
+    counted once; and the number of calls."""
+    import bisect
+    import torch
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = {n: [] for n in names}
+    ops, backward, launches, device = [], [], [], {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            if not ev.is_user_annotation():
+                device.setdefault(ev.correlation_id(), []).append(
+                    ev.duration_ns() / 1e3)
+            continue
+        if ev.device_type() != cpu:
+            continue
+        name, tid = ev.name(), ev.start_thread_id()
+        if name in spans:
+            spans[name].append((ev.start_ns(), ev.end_ns(), tid))
+        elif name.startswith("autograd::engine::evaluate_function"):
+            backward.append((ev.sequence_nr(), ev.fwd_thread_id(),
+                             ev.start_ns(), ev.end_ns(), tid))
+        elif name.startswith("cu") and ev.correlation_id():
+            launches.append((ev.start_ns(), tid, ev.correlation_id()))
+        elif ev.sequence_nr() >= 0:
+            ops.append((ev.start_ns(), tid, ev.sequence_nr()))
+
+    def within(sp: list):
+        """A test of (time, thread) against the spans ``sp``, which do
+        not overlap on a thread."""
+        by = {}
+        for a, b, th in sorted(sp):
+            by.setdefault(th, ([], []))
+            by[th][0].append(a)
+            by[th][1].append(b)
+
+        def test(t: int, tid: int) -> bool:
+            starts, ends = by.get(tid, ((), ()))
+            i = bisect.bisect_right(starts, t) - 1
+            return i >= 0 and t < ends[i]
+        return test
+
+    out = {}
+    for name, sp in spans.items():
+        fwd_in = within(sp)
+        mine = {(seq, tid) for t, tid, seq in ops if fwd_in(t, tid)}
+        back_in = within([(a, b, th) for seq, fwd, a, b, th in backward
+                          if (seq, fwd) in mine])
+        corr = {c for t, tid, c in launches
+                if fwd_in(t, tid) or back_in(t, tid)}
+        out[name] = (sum(sum(device.get(c, ())) for c in corr), len(sp))
+    return out
+
+
+def drive_train(arch: str, cut: dict, steps: int, M: int, dev,
+                profiled: bool = True) -> dict:
     """One full-width training run: ``steps`` steps of ``TRAIN_BATCH`` x
-    ``TRAIN_SEQ`` tokens of ``SyntheticTokens`` (drawn before the timed
-    loop), each timed to its loss read; then one profiled step.  Holds
-    every loss and grad norm finite, the first loss near ln V and the last
-    ``TRAIN_DROP`` below it."""
+    ``TRAIN_SEQ`` positions of the family's batches (``_train_batches``,
+    drawn before the timed loop), each timed to its loss read; then, if
+    ``profiled``, one profiled step, by kernel kind and, for an MoE model,
+    with ``moe_block``'s and ``moe_dense``'s share of its device time
+    under autograd.  Holds every loss and grad norm finite, the first loss
+    near ln V and the last ``TRAIN_DROP`` below it."""
     import math
     import torch
     from torch.profiler import profile
@@ -3270,7 +3404,8 @@ def drive_train(arch: str, cut: dict, steps: int, M: int, dev) -> dict:
     model, step, state = build_trainer(cfg, dev, TRAIN_LR, steps, M, seed=0)
     torch.cuda.synchronize()
     init_s, t0 = time.perf_counter() - t0, time.perf_counter()
-    batches = _token_batches(cfg, steps + 1, TRAIN_BATCH, TRAIN_SEQ, dev)
+    batches = _train_batches(cfg, steps + int(profiled), TRAIN_BATCH,
+                             TRAIN_SEQ, dev)
     data_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     losses, norms, lrs, walls = [], [], [], []
@@ -3282,22 +3417,30 @@ def drive_train(arch: str, cut: dict, steps: int, M: int, dev) -> dict:
         norms.append(float(met["grad_norm"]))
         lrs.append(float(met["lr"]))
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=_activities(cfg)) as prof:
-        t0 = time.perf_counter()
-        float(step(state, batches[steps])["loss"])
-        wall = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     wall_med = statistics.median(walls)
     ln_v = math.log(cfg.vocab_size)
     row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-               microbatches=M, remat=cfg.remat, steps=steps, init_s=init_s,
+               microbatches=M, remat=cfg.remat,
+               remat_policy=cfg.remat_policy, steps=steps, init_s=init_s,
                data_s=data_s, losses=losses, grad_norms=norms, lrs=lrs,
                step_wall_s=wall_med, step_walls_s=walls,
                tokens_s=TRAIN_BATCH * TRAIN_SEQ / wall_med,
-               peak_mem_gb=peak / 1e9, ln_vocab=ln_v,
-               profile=_device_rows(prof, wall, f"train step {cfg.name}",
-                                    kinds=True))
+               peak_mem_gb=peak / 1e9, ln_vocab=ln_v)
+    if profiled:
+        with _moe_ranges(), profile(activities=_activities(cfg)) as prof:
+            t0 = time.perf_counter()
+            float(step(state, batches[steps])["loss"])
+            wall = time.perf_counter() - t0
+        row["profile"] = _device_rows(prof, wall, f"train step {cfg.name}",
+                                      kinds=True)
+        busy = row["profile"]["device_busy_s"]
+        if cfg.is_moe and isinstance(busy, float):
+            for name, (us, calls) in _autograd_range_kernels(
+                    prof, MOE_RANGES).items():
+                row["profile"][name] = dict(us=us, calls=calls,
+                                            share_of_busy=us / 1e6 / busy)
     del model, step, state, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -3315,11 +3458,59 @@ def drive_train(arch: str, cut: dict, steps: int, M: int, dev) -> dict:
     return row
 
 
+def train_dots(full: dict, cut: dict, M: int, dev) -> dict:
+    """``TRAIN_DOTS``'s run again for its first ``TRAIN_DOTS_STEPS`` steps
+    under ``remat_policy="dots"``, from the same weights (the same seed)
+    and batches, on the same schedule, beside the ``full`` run's row: the
+    first loss equal, every grad norm within ``TRAIN_DOTS_RTOL``
+    relative; both runs' peaks and step walls."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_trainer
+    cfg = dataclasses.replace(get_config(TRAIN_DOTS), remat_policy="dots",
+                              **cut)
+    n = TRAIN_DOTS_STEPS
+    model, step, state = build_trainer(cfg, dev, TRAIN_LR, full["steps"], M,
+                                       seed=0)
+    batches = _train_batches(cfg, n, TRAIN_BATCH, TRAIN_SEQ, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        met = step(state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    del model, step, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    norm_dev = max(abs(a - b) / abs(b) for a, b in zip(
+        norms, full["grad_norms"][:n]))
+    row = dict(arch=cfg.name, steps=n, full_losses=full["losses"][:n],
+               dots_losses=losses, full_grad_norms=full["grad_norms"][:n],
+               dots_grad_norms=norms, grad_norm_rel_dev=norm_dev,
+               rtol=TRAIN_DOTS_RTOL, full_step_walls_s=full["step_walls_s"][:n],
+               dots_step_walls_s=walls, full_peak_mem_gb=full["peak_mem_gb"],
+               dots_peak_mem_gb=peak / 1e9)
+    print("train dots:", json.dumps(row), flush=True)
+    if losses[0] != full["losses"][0] or not norm_dev <= TRAIN_DOTS_RTOL:
+        raise AssertionError(f"train dots {cfg.name}: first loss "
+                             f"{losses[0]} vs {full['losses'][0]} under full "
+                             f"remat, grad norms {norms} vs "
+                             f"{full['grad_norms'][:n]}")
+    return row
+
+
 def train_cross_check(dev) -> dict:
-    """``TRAIN_XDEV``: the same f32 masters and batches trained on the
-    card and on the CPU, each trainer built as ``launch.train.run`` builds
-    it; the largest deviations of the losses, grad norms and trained
-    changes, each against its limit."""
+    """``TRAIN_XDEV``: the same f32 masters and batches (the family's,
+    ``_train_batches``, drawn on the CPU) trained on the card and on the
+    CPU, each trainer built as ``launch.train.run`` builds it; the largest
+    deviations of the losses, grad norms and trained changes, each
+    against its limit.  For an MoE model the tokens whose experts differ
+    between the devices are counted over every router call
+    (``_routing``) and named in a failure."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.train import build_trainer
@@ -3327,6 +3518,7 @@ def train_cross_check(dev) -> dict:
     out = {}
     for arch in x["archs"]:
         cfg = dataclasses.replace(get_smoke_config(arch), remat=True)
+        host = _train_batches(cfg, x["steps"], x["batch"], x["seq"], "cpu")
         runs = {}
         for where in ("cpu", dev):
             model, step, state = build_trainer(cfg, where, x["lr"],
@@ -3334,21 +3526,26 @@ def train_cross_check(dev) -> dict:
             if where != "cpu":
                 model.load_state_dict(runs["cpu"][0])
             init = {k: v.clone() for k, v in model.state_dict().items()}
-            mets = [step(state, b) for b in _token_batches(
-                cfg, x["steps"], x["batch"], x["seq"], where)]
-            runs[str(where)] = (init, model, mets)
-        (w0, cpu, cm), (init, gpu, gm) = runs["cpu"], runs[str(dev)]
+            with _routing() as routed:
+                mets = [step(state, {k: v.to(where) for k, v in b.items()})
+                        for b in host]
+            runs[str(where)] = (init, model, mets, routed)
+        (w0, cpu, cm, cr), (init, gpu, gm, gr) = runs["cpu"], runs[str(dev)]
         for k, v in init.items():
             if not torch.equal(v.cpu(), w0[k]):
                 raise AssertionError(f"train xdev {arch}: {k} differs at init")
-        row = {}
+        flips = sum(int((a.sort(-1).values != b.cpu().sort(-1).values
+                         ).any(-1).sum()) for a, b in zip(cr, gr, strict=True))
+        row = dict(expert_flips=flips) if cfg.is_moe else {}
+        why = f" ({flips} tokens' experts flipped)" if flips else ""
         for key in ("loss", "grad_norm"):
             dev_rel = max(abs(float(a[key]) - float(b[key])) / abs(float(a[key]))
                           for a, b in zip(cm, gm))
             row[f"{key}_rel_dev"] = dev_rel
             if dev_rel > TRAIN_XDEV_RTOL:
                 raise AssertionError(f"train xdev {arch}: {key} relative "
-                                     f"deviation {dev_rel} > {TRAIN_XDEV_RTOL}")
+                                     f"deviation {dev_rel} > "
+                                     f"{TRAIN_XDEV_RTOL}{why}")
         worst = (0.0, "")
         for (name, a), b in zip(cpu.named_parameters(), gpu.parameters()):
             d_cpu = a.detach() - w0[name]
@@ -3359,7 +3556,7 @@ def train_cross_check(dev) -> dict:
         if worst[0] > TRAIN_XDEV_DW:
             raise AssertionError(f"train xdev {arch}: {worst[1]}'s trained "
                                  f"change deviates by {worst[0]} > "
-                                 f"{TRAIN_XDEV_DW}")
+                                 f"{TRAIN_XDEV_DW}{why}")
         row["losses_gpu"] = [float(m["loss"]) for m in gm]
         out[arch] = row
     return out
@@ -3390,8 +3587,9 @@ def train_resume(dev) -> dict:
 
 
 def train_guard(dev) -> dict:
-    """Under grad the kernels refuse: a train step under
-    ``attention_impl="pallas"``, and each model kernel's wrapper called
+    """Under grad the kernels refuse: a train step of granite-8b's and of
+    qwen3-moe-30b-a3b's smoke config under ``attention_impl="pallas"``,
+    and each model kernel's wrapper called
     with an input that requires grad, raise ``RuntimeError`` on the card;
     under ``no_grad`` the same calls launch."""
     import torch
@@ -3401,18 +3599,18 @@ def train_guard(dev) -> dict:
     from repro_torch.launch.train import build_trainer
     from repro_torch.models.sharding import ModelContext
     from repro_torch.optim import AdamW
-    cfg = get_smoke_config("granite-8b")
-    model, _, state = build_trainer(cfg, dev, 1e-3, 1, 1, seed=0)
-    step = build_train_step(model, AdamW(decayed=model.decayed()),
-                            ModelContext(attention_impl="pallas"))
-    batch = _token_batches(cfg, 1, 2, 64, dev)[0]
     refused = []
-    try:
-        step(state, batch)
-    except RuntimeError as e:
-        if "forward-only" not in str(e):
-            raise
-        refused.append("train step")
+    for arch in ("granite-8b", "qwen3-moe-30b-a3b"):
+        cfg = get_smoke_config(arch)
+        model, _, state = build_trainer(cfg, dev, 1e-3, 1, 1, seed=0)
+        step = build_train_step(model, AdamW(decayed=model.decayed()),
+                                ModelContext(attention_impl="pallas"))
+        try:
+            step(state, _token_batches(cfg, 1, 2, 64, dev)[0])
+        except RuntimeError as e:
+            if "forward-only" not in str(e):
+                raise
+            refused.append(f"{arch} train step")
     g = torch.Generator(dev).manual_seed(0)
     r = lambda *sh: torch.randn(*sh, generator=g, device=dev)
     pos = torch.arange(64, dtype=torch.int32, device=dev)
@@ -3438,30 +3636,39 @@ def train_guard(dev) -> dict:
         with torch.no_grad():
             fn(*args)
     torch.cuda.synchronize()
-    if refused != ["train step", *calls]:
+    if refused != ["granite-8b train step", "qwen3-moe-30b-a3b train step",
+                   *calls]:
         raise AssertionError(f"train guard: only {refused} refused grad")
     return dict(refused=refused)
 
 
-def drive_train_phase(dev, done) -> tuple[dict, dict]:
+def drive_train_phase(dev, done, runs=TRAIN_RUNS, checks: bool = True
+                      ) -> tuple[dict, dict]:
     """The train phase: every kernel's launches counted from 0 before it
     and read after (all 0: training runs the plain paths, as the
-    reference's does), the full-width runs, the GPU-against-CPU check,
-    the entry point's resume and the kernels' guard.  Returns the
-    launches and the full-width runs' rows by arch."""
+    reference's does), the full-width ``runs`` (``TRAIN_RUNS``), the
+    ``TRAIN_DOTS`` pair when its run is among them, and with ``checks``
+    the GPU-against-CPU check, the entry point's resume and the kernels'
+    guard.  Returns the launches and the full-width runs' rows by arch."""
     _reset_launches()
     rows = {}
-    for arch, cut, steps, M in TRAIN_RUNS:
-        rows[arch] = drive_train(arch, cut, steps, M, dev)
+    for arch, cut, steps, M in runs:
+        rows[arch] = drive_train(arch, cut, steps, M, dev,
+                                 profiled=arch in TRAIN_PROFILED)
         done(f"train {arch}")
-    print("train cross-check:", json.dumps(train_cross_check(dev)))
-    print("train resume:", json.dumps(train_resume(dev)))
-    done("train cross-check and resume")
+        if arch == TRAIN_DOTS:
+            train_dots(rows[arch], cut, M, dev)
+            done(f"train {arch} dots")
+    if checks:
+        print("train cross-check:", json.dumps(train_cross_check(dev)))
+        print("train resume:", json.dumps(train_resume(dev)))
+        done("train cross-check and resume")
     counts = _launches()
     if any(counts.values()):
         raise AssertionError(f"train: kernel launches {counts}, want none")
-    print("train guard:", json.dumps(train_guard(dev)))
-    done("train guard")
+    if checks:
+        print("train guard:", json.dumps(train_guard(dev)))
+        done("train guard")
     return counts, rows
 
 

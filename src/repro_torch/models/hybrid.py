@@ -19,7 +19,8 @@ weights and the embedding in bf16 to serve or as f32 masters to train
 (``trainable``, as in :mod:`repro_torch.models.transformer`) and the rest
 in f32, so :func:`params_from_jax` is a copy and a cast.  Under grad,
 ``cfg.remat`` recomputes each macro-block (its Mamba2 layers and the
-shared block) in backward, the reference's checkpoint unit.  The decode
+shared block) in backward, the reference's checkpoint unit, whole
+whatever ``cfg.remat_policy`` says, as the reference's.  The decode
 cache (per-layer conv and SSM state, 13 K/V caches) is updated in place.
 """
 
@@ -34,10 +35,11 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import Mamba2, init_mamba2_state
+from repro_torch.models.remat import checkpointed
 from repro_torch.models.sharding import ModelContext
 from repro_torch.models.transformer import (
-    ACT_DTYPE, INIT_SCALE, Block, _host, _numpy, _weight, checkpointed,
-    decayed_names, weight_kinds)
+    ACT_DTYPE, INIT_SCALE, Block, _host, _numpy, _weight, decayed_names,
+    weight_kinds)
 
 #: standard deviation of the conv weights' random init (the reference's)
 CONV_INIT_SCALE = 0.1

@@ -31,6 +31,7 @@ from repro_torch.kernels.decode_attention import flash_decode_ref
 from repro_torch.kernels.flash_attention import (
     NEG_INF, _expand_kv, _mask_bias, flash_attention_ref, softcap)
 from repro_torch.kernels.rmsnorm import rmsnorm_ref
+from repro_torch.models.remat import mlp_output
 from repro_torch.models.sharding import ModelContext
 
 __all__ = ["NEG_INF", "rmsnorm", "softcap", "rope", "attention_reference",
@@ -166,10 +167,12 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, logit_cap=0.0,
 
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
            ) -> torch.Tensor:
-    """wi: (D, 2F) fused gate+up; wo: (F, D)."""
+    """wi: (D, 2F) fused gate+up; wo: (F, D).  The output product runs
+    through :func:`~repro_torch.models.remat.mlp_output`, which tells the
+    dots remat policy whether backward reads it."""
     h = x @ wi.to(x.dtype)
     gate, up = h.chunk(2, dim=-1)
-    return (F.silu(gate) * up) @ wo.to(x.dtype)
+    return mlp_output(F.silu(gate) * up, wo.to(x.dtype))
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ reference's ``repro.models.moe``, function for function.
   on one card, so this is its MoE path.
 * ``ep`` — the reference's expert parallelism over a mesh (``moe_ep``,
   ``_ep_local``: ``shard_map`` and ``all_to_all``) is not ported yet: it
-  needs the mesh of ROADMAP §1 item 7, and ``ModelContext`` refuses
+  needs the mesh of ROADMAP §1 item 5, and ``ModelContext`` refuses
   ``moe_impl="ep"``.
 
 Weights layout (one layer; the reference stacks them on a layer axis):

@@ -35,7 +35,7 @@ class ModelContext:
     ``dense`` without a mesh, as the reference's ``moe_block`` resolves
     it.  ``ep`` (expert parallelism over a mesh) is not ported: the
     reference's ``moe_ep`` needs a mesh, which the port has not yet
-    (ROADMAP §1 item 7)."""
+    (ROADMAP §1 item 5)."""
 
     attention_impl: str = "auto"
     blocked_threshold: int = 2048
@@ -50,4 +50,4 @@ class ModelContext:
         if self.moe_impl == "ep":
             raise NotImplementedError(
                 "moe_impl='ep' needs a device mesh, which the port does not "
-                "have yet (ROADMAP §1 item 7); use 'dense' or 'auto'")
+                "have yet (ROADMAP §1 item 5); use 'dense' or 'auto'")

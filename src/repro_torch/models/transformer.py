@@ -36,8 +36,9 @@ carrying them over (:func:`params_from_jax`, and back,
 :func:`params_to_numpy`) is a copy and a cast.
 
 Under grad, ``cfg.remat`` recomputes each of the reference's checkpoint
-units in backward (:func:`checkpointed`): each layer, or each gemma2
-local/global pair.
+units in backward (:func:`repro_torch.models.remat.checkpointed`): each
+layer, or each gemma2 local/global pair, under ``cfg.remat_policy``
+(``"full"``, or ``"dots"``: the products with no batch dimensions kept).
 
 Under ``attention_impl="pallas"`` every norm runs the fused RMSNorm
 kernel and decode the flash decode kernel, beside flash attention.  The
@@ -47,16 +48,16 @@ hybrid family is :mod:`repro_torch.models.hybrid` (its shared block is a
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_block
+from repro_torch.models.remat import checkpointed, output_unread
 from repro_torch.models.sharding import ModelContext
 
 #: standard deviation of the random init, the reference's ``dense_init``
@@ -79,21 +80,6 @@ def weight_kinds(device, trainable: bool) -> tuple:
     mm = dict(device=device, trainable=trainable,
               dtype=torch.float32 if trainable else torch.bfloat16)
     return mm, dict(mm, dtype=torch.float32)
-
-
-def checkpointed(cfg: ArchConfig, fn: Callable, *args):
-    """``fn(*args)``, recomputed in backward (``torch.utils.checkpoint``,
-    non-reentrant) when the reference would remat it: ``cfg.remat``,
-    and only while grad is enabled.  The reference's other policy,
-    ``remat_policy="dots"`` (save the matmul outputs), is not ported
-    (ROADMAP §1)."""
-    if not (cfg.remat and torch.is_grad_enabled()):
-        return fn(*args)
-    if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy='dots' is not ported yet (ROADMAP "
-            "§1); use remat_policy='full'")
-    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def decayed_names(model: nn.Module, stacked: tuple) -> frozenset:
@@ -156,16 +142,21 @@ class Block(nn.Module):
             mp.update(wi_s=self.wi_s, wo_s=self.wo_s)
         return mp
 
-    def _mlp(self, x: torch.Tensor, ctx: ModelContext) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor, ctx: ModelContext,
+             unit_end: bool = False) -> torch.Tensor:
+        """x plus the MLP's output.  ``unit_end``: this block closes its
+        remat unit, so without a post-MLP norm only the residual add reads
+        the MLP's output (``remat.output_unread``)."""
         cfg = self.cfg
         h = L.rmsnorm(x, self.mlp_norm, ctx=ctx)
-        if cfg.is_moe:
-            m = moe_block(h, self.moe_params(), k=cfg.experts_per_token,
-                          n_experts=cfg.n_experts,
-                          n_shared=cfg.n_shared_experts,
-                          capacity_factor=cfg.capacity_factor, ctx=ctx)
-        else:
-            m = L.swiglu(h, self.wi, self.wo_mlp)
+        with output_unread(unit_end and not cfg.post_norms):
+            if cfg.is_moe:
+                m = moe_block(h, self.moe_params(), k=cfg.experts_per_token,
+                              n_experts=cfg.n_experts,
+                              n_shared=cfg.n_shared_experts,
+                              capacity_factor=cfg.capacity_factor, ctx=ctx)
+            else:
+                m = L.swiglu(h, self.wi, self.wo_mlp)
         if cfg.post_norms:
             m = L.rmsnorm(m, self.post_mlp_norm, ctx=ctx)
         return x + m
@@ -186,9 +177,11 @@ class Block(nn.Module):
         return x + a
 
     def forward(self, x: torch.Tensor, window: int, positions: torch.Tensor,
-                ctx: ModelContext) -> torch.Tensor:
-        """x: (B, S, D); ``window`` static (0 = global)."""
-        return self._mlp(self.attend(x, window, positions, ctx), ctx)
+                ctx: ModelContext, unit_end: bool = False) -> torch.Tensor:
+        """x: (B, S, D); ``window`` static (0 = global); ``unit_end`` as
+        :meth:`_mlp`'s."""
+        return self._mlp(self.attend(x, window, positions, ctx), ctx,
+                         unit_end)
 
     def decode_attend(self, x: torch.Tensor, k_l: torch.Tensor,
                       v_l: torch.Tensor, pos: torch.Tensor, window: int,
@@ -293,7 +286,8 @@ class TransformerLM(nn.Module):
     def _unit(self, x: torch.Tensor, layers: range, positions: torch.Tensor,
               ctx: ModelContext) -> torch.Tensor:
         for i in layers:
-            x = self.blocks[i](x, self.windows[i], positions, ctx)
+            x = self.blocks[i](x, self.windows[i], positions, ctx,
+                               unit_end=i == layers[-1])
         return x
 
     def input_embeds(self, batch: Mapping) -> torch.Tensor:
@@ -325,7 +319,7 @@ class TransformerLM(nn.Module):
         per = 2 if self.cfg.attn_pattern == "local_global" else 1
         for i in range(0, self.cfg.n_layers, per):
             x = checkpointed(self.cfg, self._unit, x, range(i, i + per),
-                             positions, ctx)
+                             positions, ctx, policy=self.cfg.remat_policy)
         if last_only:
             x = x[:, -1:]
         x = L.rmsnorm(x, self.final_norm, ctx=ctx)

@@ -23,7 +23,8 @@ reference casts.  Under ``attention_impl="pallas"`` every norm (``norm``
 and ``out_norm`` of each block, ``final_norm``) runs the RMSNorm kernel,
 2 x n_layers + 1 launches a prefill or a decode step.  Under grad,
 ``cfg.remat`` recomputes each block in backward, the reference's
-checkpoint unit.
+checkpoint unit, whole whatever ``cfg.remat_policy`` says, as the
+reference's.
 
 The decode cache is the reference's list of per-block states, f32:
 ``(C (B, nh, hd, hd), n (B, nh, hd))`` for an mLSTM block and ``(c, n,
@@ -45,10 +46,11 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.remat import checkpointed
 from repro_torch.models.sharding import ModelContext
 from repro_torch.models.transformer import (
-    ACT_DTYPE, INIT_SCALE, _host, _numpy, _weight, checkpointed,
-    decayed_names, weight_kinds)
+    ACT_DTYPE, INIT_SCALE, _host, _numpy, _weight, decayed_names,
+    weight_kinds)
 
 MLSTM_CHUNK = 256
 IGATE_CLAMP = 8.0

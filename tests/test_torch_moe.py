@@ -268,7 +268,7 @@ def test_expert_ffn_matches_reference():
 
 def test_model_context_moe_impl():
     assert ModelContext().moe_impl == JaxCtx().moe_impl == "auto"
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         ModelContext(moe_impl="ep")
     with pytest.raises(ValueError, match="moe_impl"):
         ModelContext(moe_impl="sparse")

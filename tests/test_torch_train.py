@@ -234,15 +234,6 @@ def test_remat_gives_the_same_gradients():
         torch.testing.assert_close(out[0][n], out[1][n], rtol=0, atol=0)
 
 
-def test_remat_policy_dots_is_not_ported():
-    model = _port("granite-8b", remat=True, remat_policy="dots")
-    batch = _torch(_batches("granite-8b", 1)[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.loss(model, batch)
-    with torch.no_grad():                   # serving never remats
-        zoo.loss(model, batch)
-
-
 def _trained(arch: str, M: int, decayed=None):
     """Three ``build_train_step`` steps of the port and of the reference
     on the same batches from the same weights.  Returns the (port,
