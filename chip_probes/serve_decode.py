@@ -2,20 +2,24 @@
 again after some of the smoke's earlier phases: is a slower decode step
 the code's or the process's?
 
-For granite-8b and zamba2-7b at full size (random weights), the smoke's
-``drive_decode_ctx`` (flash decode against full caches, each shape's step
-timed and profiled), with the host time of one small CUDA op
-(``micro_us``), the objects the garbage collector tracks and the
-collection pauses during the timed steps.  ``--after`` names smoke phases
-to run first, then the decode is timed again in the same process:
-``wave`` (the wave cells), ``profiles`` (the wave and cohort profiles),
-``chaos`` (the chaos cells).
+For the models ``--arch`` names (granite-8b and zamba2-7b unless told)
+at full size (random weights), the smoke's ``drive_decode_ctx`` (flash
+decode against full caches, each shape's step timed and profiled), with
+the host time of one small CUDA op (``micro_us``), the objects the
+garbage collector tracks and the collection pauses during the timed
+steps.  ``--after`` names smoke phases to run first, then the decode is
+timed again in the same process: ``wave`` (the wave cells), ``profiles``
+(the wave and cohort profiles), ``chaos`` (the chaos cells).  ``--world``
+times the decode with a one-rank NCCL process group open (given its
+address on ``localhost``) and its communicator made by one all-reduce,
+as it stands while a mesh path runs.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU; the
 checkout's own ``chip_smoke.py`` and ``src/`` are used, so a parent
 commit unpacked elsewhere is timed by running this file from its root::
 
-    python3 chip_probes/serve_decode.py [--after wave,profiles]
+    python3 chip_probes/serve_decode.py [--after wave,profiles] \
+        [--arch qwen3-moe-30b-a3b pixtral-12b] [--world]
 """
 import argparse
 import gc
@@ -46,8 +50,8 @@ def micro() -> float:
     return (time.perf_counter() - t) / 40000 * 1e6
 
 
-def decode(tag: str) -> None:
-    """``drive_decode_ctx`` for both models; one line a shape."""
+def decode(tag: str, archs: list) -> None:
+    """``drive_decode_ctx`` for each of ``archs``; one line a shape."""
     pause, t0 = [0.0], [0.0]
 
     def on_gc(phase: str, info: dict) -> None:
@@ -56,7 +60,7 @@ def decode(tag: str) -> None:
         else:
             pause[0] += time.perf_counter() - t0[0]
 
-    for arch in ("granite-8b", "zamba2-7b"):
+    for arch in archs:
         model, _ = cs.build_lm(arch, dev)
         pause[0] = 0.0
         gc.callbacks.append(on_gc)
@@ -83,7 +87,22 @@ def main() -> None:
     ap.add_argument("--after", default="",
                     help="comma-separated smoke phases to run before a "
                          "second timing: wave, profiles, chaos")
+    ap.add_argument("--arch", nargs="+", default=["granite-8b", "zamba2-7b"])
+    ap.add_argument("--world", action="store_true",
+                    help="time with a one-rank NCCL world open")
     args = ap.parse_args()
+    if args.world:
+        import socket
+        import torch.distributed as dist
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+        # one collective, so that the communicator and its threads exist,
+        # as after a mesh path's first exchange
+        dist.all_reduce(torch.ones(1, device=dev))
+        torch.cuda.synchronize()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -91,7 +110,8 @@ def main() -> None:
         list(pool.map(_build.build, KERNELS))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    decode("fresh")
+    tag = "fresh, world open" if args.world else "fresh"
+    decode(tag, args.arch)
     phases = [p for p in args.after.split(",") if p]
     for p in phases:
         t = time.perf_counter()
@@ -106,7 +126,9 @@ def main() -> None:
             raise SystemExit(f"unknown phase {p!r}")
         print(f"ran {p} in {time.perf_counter() - t} s", flush=True)
     if phases:
-        decode("after " + "+".join(phases))
+        decode("after " + "+".join(phases), args.arch)
+    if args.world:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -81,10 +81,10 @@ tensor-core kernel):
   cell, each seed solo on the wave program (pump launches), its
   summaries inside the ``device_loop.*`` bands of the main path's
   stacked lanes; ``run_campaign`` of Fig 6's feedback at 64 consumers x
-  16384 messages on dts and mss, in-process, the dts group on the wave
+  10240 messages on dts and mss, in-process, the dts group on the wave
   program (pump launches) and the mss group on the cohort engine (none),
   every summary reporting the jax engine; ``deployment_feasibility`` at
-  1, 8 and 64 tenants of 64 messages each, its curves and headline;
+  1, 8 and 64 tenants of 16 messages each, its curves and headline;
 * the availability crossover — ``availability_crossover`` at the
   reference's defaults (single-fault ingress outages of 5, 20, 40, 80
   and 120 s on dts and mss, 20 solo cohort cells) but 512 messages a
@@ -221,7 +221,24 @@ tensor-core kernel):
   the producers' rates and the work queues' depths at each feedback;
   every loss finite and in the band, every row of every batch, read back
   from the card, a published payload's tokens, and no model kernel
-  launched.
+  launched;
+* the mesh path — in a one-rank NCCL world (``init_process_group`` on
+  ``localhost``, rank 0 of 1) on a (1, 1) ("data", "model") mesh, the
+  port's DTensor placements from ``launch.shardings.assemble``:
+  qwen3-moe-30b-a3b as its serving phase built it (placed in place: on
+  one rank every placement is a view), its first MoE layer under expert
+  parallelism (``moe_ep``, ``moe_impl="auto"``) at a capacity factor of
+  E/k = 16 (nothing dropped) against ``moe_dense``; the full-depth 2 x
+  2048 prefill under ``pallas`` (flash attention and RMSNorm through
+  ``local_map``) at E/k with the dense run's experts forced, held as the
+  MoE rows hold their logits; at the config's capacity factor the
+  prefill timed beside the dense one, the dropped share of (token,
+  expert) pairs, the requests whose experts flipped, a profile with
+  ``moe_ep``'s share of busy time; the decode step at 128 x 1024 (flash
+  decode on the whole cache) held likewise and timed beside the step off
+  the mesh; and, after granite-8b's train run, one train step of that
+  run's model, state and batch in the ZeRO layout, its loss against the
+  same step's off the mesh (``mesh_moe``, ``mesh_train``).
 
 The line before the last holds the kernels' numbers as JSON, and the
 last line the device.  Any failure exits nonzero; without CUDA it exits
@@ -264,6 +281,11 @@ MAIN_CELLS = (
 SEEDS = (0, 1000, 2000)
 #: warm timed runs of each main-path cell (median and spread reported)
 WALL_REPEATS = 3
+#: timed runs of each wave cell (after its warm run): one, cut from three
+#: (``WALL_REPEATS``) to make room for the mesh path (a repeat of the four
+#: cells took about 13 s on an H100 at 700 W); a timed run's wall varies
+#: up to 15% between repeats (the spread a median of three hid)
+WAVE_REPEATS = 1
 #: warm timed runs of each cohort and flow cell: one, so that the smoke
 #: with its chaos phase stays well inside its time limit (these phases are
 #: host-bound, and their walls vary up to 1.8x between calls)
@@ -339,19 +361,27 @@ CHAOS_XCHECK_MSGS, CHAOS_XCHECK_WINDOW = 512, (1.0, 3.0)
 
 #: the experiment layer's cells: (a) ``run_pattern`` on the main path's
 #: feedback cell, each seed solo; (b) a campaign of Fig 6's feedback at
-#: 64 consumers x 16384 messages (256 a producer, inside the wave gate's
-#: feedback corridor W < M <= 2W at the confirm window of 128) on dts,
-#: which the gate takes, and mss, which it refuses; (c) the deployment
-#: study at three of ``TENANT_SWEEP``'s seven tenant counts, 64 messages
-#: a tenant (the reference's 256 cut to keep the smoke's phases inside
-#: 1050 s on a slow host; the crossover stays inside the sweep)
+#: 64 consumers x 10240 messages (160 a producer, inside the wave gate's
+#: feedback corridor W < M <= 2W at the confirm window of 128; cut from
+#: 16384 to make room for the mesh path: the mss group took 26.9 s of
+#: the campaign's 28.2 at 16384 on an H100 at 700 W; at 10240 dts still
+#: takes the wave program and mss the cohort engine,
+#: ``chip_probes/depth_cuts.py exp`` on the CPU) on dts, which the gate
+#: takes, and mss, which it refuses; (c) the deployment study at three
+#: of ``TENANT_SWEEP``'s seven tenant counts, 16 messages a tenant (the
+#: reference's 256 cut to 64 to keep the smoke's phases inside 1050 s on
+#: a slow host, then to 16 and 8 for the mesh path: 29.6 s at 64 and
+#: 8.1 s at 16 on an H100 at 700 W; at 16 and at 8 every point is
+#: feasible and finite and the crossover stays inside the sweep, 51.4 and
+#: 53.3 tenants against 55.05 at 64, ``chip_probes/depth_cuts.py exp`` on
+#: the CPU)
 EXP_PATTERN = ("feedback", "dts", 256, 65536)
 EXP_CAMPAIGN = dict(name="fig6 c64", patterns=("feedback",),
                     architectures=("dts", "mss"), workloads=("dstream",),
-                    consumers=(64,), n_runs=len(SEEDS), total_messages=16384,
+                    consumers=(64,), n_runs=len(SEEDS), total_messages=10240,
                     params={"engine": "jax", "jax_device_loop": True})
 EXP_TENANTS = (1, 8, 64)
-EXP_TENANT_MSGS = 64
+EXP_TENANT_MSGS = 8
 #: messages a cell of the availability crossover: the reference's 4096
 #: cut to 1024 to keep the smoke's phases near 906 s (the availability
 #: phase took 251.3 s at 4096 in phases of 1021 s, 128.0 s at 2048 in
@@ -562,6 +592,22 @@ FAMILY_SERVE = {"qwen3-moe-30b-a3b": QWEN3_SERVE,
                 "musicgen-large": MUSICGEN_SERVE,
                 "pixtral-12b": PIXTRAL_SERVE}
 #: prefill (requests, positions) of each served model
+#: the mesh path: one NCCL rank on a (1, 1) ("data", "model") mesh, the
+#: port's DTensor placements from ``launch.shardings.assemble``.  The
+#: serving model on it (the one ``serve_families`` built, placed in place:
+#: on one rank every placement is a view) and its decode shape; the
+#: trained model (the train phase's run, after its steps)
+MESH_SERVE, MESH_TRAIN = "qwen3-moe-30b-a3b", "granite-8b"
+MESH_DECODE = (128, 1024)
+#: timed runs of the mesh prefill and decode step, each after a held or
+#: recorded run of the same step
+MESH_REPEATS = 2
+#: the mesh train step against the same step off the mesh: its loss and
+#: grad norm (relative) and each weight's change (of the change off the
+#: mesh), near rounding (the loss read equal bit for bit on an H100 at
+#: 700 W); the first MoE layer under EP at a capacity that drops nothing
+#: against ``moe_dense`` (of max |y|)
+MESH_TRAIN_RTOL, MESH_LAYER_TOL = 1e-5, 2e-2
 PREFILL = {"granite-8b": (PREFILL_BATCH, PREFILL_LEN),
            "zamba2-7b": (PREFILL_BATCH, PREFILL_LEN),
            "xlstm-1.3b": XLSTM_SERVE["prefill"],
@@ -2073,12 +2119,12 @@ MOE_RANGES = ("moe_block", "moe_dense")
 
 @contextlib.contextmanager
 def _moe_ranges():
-    """While inside, ``moe_block`` (as ``Block`` calls it) and
-    ``moe_dense`` (as ``moe_block`` calls it) each run in a
+    """While inside, ``moe_block`` (as ``Block`` calls it), ``moe_dense``
+    and ``moe_ep`` (as ``moe_block`` calls them) each run in a
     ``torch.profiler`` range of their name."""
     import torch
     from repro_torch.models import moe, transformer
-    where = ((transformer, "moe_block"), (moe, "moe_dense"))
+    where = ((transformer, "moe_block"), (moe, "moe_dense"), (moe, "moe_ep"))
     orig = [getattr(m, n) for m, n in where]
 
     def ranged(name, fn):
@@ -2366,7 +2412,7 @@ def _specs(pattern: str, arch: str, n: int, msgs: int):
 
 def drive_main_path(dev) -> tuple[list, int]:
     """Every wave cell through ``run_many`` on the card, warm (after one
-    untimed run), timed ``WALL_REPEATS`` times, each run with the
+    untimed run), timed ``WAVE_REPEATS`` times, each run with the
     launches counted from 0.  Returns the per-cell rows and the total
     pump launches."""
     import torch
@@ -2386,7 +2432,7 @@ def drive_main_path(dev) -> tuple[list, int]:
         torch.cuda.synchronize()
         need = (2 if pattern == "feedback" else 1) * n_steps
         walls, counts = [], []
-        for _ in range(WALL_REPEATS):
+        for _ in range(WAVE_REPEATS):
             _reset_launches()
             t0 = time.perf_counter()
             res = run_many(specs, device=dev)
@@ -3386,14 +3432,18 @@ def _autograd_range_kernels(prof, names: tuple) -> dict:
 
 
 def drive_train(arch: str, cut: dict, steps: int, M: int, dev,
-                profiled: bool = True) -> dict:
+                profiled: bool = True, mesh: bool = False) -> dict:
     """One full-width training run: ``steps`` steps of ``TRAIN_BATCH`` x
     ``TRAIN_SEQ`` positions of the family's batches (``_train_batches``,
     drawn before the timed loop), each timed to its loss read; then, if
     ``profiled``, one profiled step, by kernel kind and, for an MoE model,
     with ``moe_block``'s and ``moe_dense``'s share of its device time
     under autograd.  Holds every loss and grad norm finite, the first loss
-    near ln V and the last ``TRAIN_DROP`` below it."""
+    near ln V and the last ``TRAIN_DROP`` below it.  With ``mesh``, the
+    weights and AdamW state are copied before the step after the run's
+    (the profiled one, or an unprofiled one), and the mesh path's train
+    step repeats that step from the copy (``mesh_train``; its row is the
+    result's ``mesh``)."""
     import math
     import torch
     from torch.profiler import profile
@@ -3404,8 +3454,8 @@ def drive_train(arch: str, cut: dict, steps: int, M: int, dev,
     model, step, state = build_trainer(cfg, dev, TRAIN_LR, steps, M, seed=0)
     torch.cuda.synchronize()
     init_s, t0 = time.perf_counter() - t0, time.perf_counter()
-    batches = _train_batches(cfg, steps + int(profiled), TRAIN_BATCH,
-                             TRAIN_SEQ, dev)
+    batches = _train_batches(cfg, steps + int(profiled or mesh),
+                             TRAIN_BATCH, TRAIN_SEQ, dev)
     data_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     losses, norms, lrs, walls = [], [], [], []
@@ -3428,10 +3478,12 @@ def drive_train(arch: str, cut: dict, steps: int, M: int, dev,
                step_wall_s=wall_med, step_walls_s=walls,
                tokens_s=TRAIN_BATCH * TRAIN_SEQ / wall_med,
                peak_mem_gb=peak / 1e9, ln_vocab=ln_v)
+    snap = _snapshot(model, state) if mesh else None
     if profiled:
         with _moe_ranges(), profile(activities=_activities(cfg)) as prof:
             t0 = time.perf_counter()
-            float(step(state, batches[steps])["loss"])
+            met = step(state, batches[steps])
+            float(met["loss"])
             wall = time.perf_counter() - t0
         row["profile"] = _device_rows(prof, wall, f"train step {cfg.name}",
                                       kinds=True)
@@ -3441,6 +3493,12 @@ def drive_train(arch: str, cut: dict, steps: int, M: int, dev,
                     prof, MOE_RANGES).items():
                 row["profile"][name] = dict(us=us, calls=calls,
                                             share_of_busy=us / 1e6 / busy)
+    if mesh:
+        if not profiled:
+            met = step(state, batches[steps])
+        state = None
+        row["mesh"] = mesh_train(model, snap, met, batches[steps], steps, M)
+        del snap
     del model, step, state, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -3654,7 +3712,8 @@ def drive_train_phase(dev, done, runs=TRAIN_RUNS, checks: bool = True
     rows = {}
     for arch, cut, steps, M in runs:
         rows[arch] = drive_train(arch, cut, steps, M, dev,
-                                 profiled=arch in TRAIN_PROFILED)
+                                 profiled=arch in TRAIN_PROFILED,
+                                 mesh=arch == MESH_TRAIN)
         done(f"train {arch}")
         if arch == TRAIN_DOTS:
             train_dots(rows[arch], cut, M, dev)
@@ -3897,12 +3956,377 @@ def moe_share(model) -> dict:
                 bound_share=flops / BF16_FLOPS * 1e3 / ms)
 
 
+@contextlib.contextmanager
+def _mesh_world():
+    """A one-rank NCCL world (``init_process_group`` given its address on
+    ``localhost``, world size 1 and rank 0: nothing on the machine
+    announces a cluster), destroyed on leaving."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _capacity(model, cf: float):
+    """While inside, every block of ``model`` runs its MoE at capacity
+    factor ``cf``."""
+    cfgs = [blk.cfg for blk in model.blocks]
+    for blk in model.blocks:
+        blk.cfg = dataclasses.replace(blk.cfg, capacity_factor=cf)
+    try:
+        yield
+    finally:
+        for blk, cfg in zip(model.blocks, cfgs):
+            blk.cfg = cfg
+
+
+def _ep_dropped(idxs: list, n_experts: int, cf: float) -> tuple:
+    """(pairs, dropped) of the (token, expert) pairs that ``moe_ep``'s
+    dispatch (``dispatch_slots`` at ``capacity``) gives each of ``idxs``,
+    the expert choices ``_routing`` recorded, one a layer call: on one
+    rank every layer's choices are all of its tokens'."""
+    from repro_torch.models import moe
+    pairs = dropped = 0
+    for idx in idxs:
+        T, k = idx.shape
+        keep = moe.dispatch_slots(idx, n_experts,
+                                  moe.capacity(T, k, cf, n_experts))[3]
+        pairs += T * k
+        dropped += int((~keep).sum())
+    return pairs, dropped
+
+
+def mesh_moe(model, tokens, dense_wall: float) -> tuple:
+    """The mesh path of ``MESH_SERVE`` (full width and depth), on the
+    model ``serve`` built: first, off the mesh, the first MoE layer's
+    input and the prefill (``PREFILL``) under ``pallas`` with its experts
+    recorded (``dense_wall``: its warm median wall, ``drive_prefill``'s,
+    in this process); then the model placed on a (1, 1) mesh by
+    ``assemble(..., "prefill", ...)``'s placements, where
+    ``moe_impl="auto"`` is expert parallelism (``moe_ep``) and flash
+    attention, RMSNorm and flash decode run through ``local_map``:
+    the first MoE layer at a capacity factor of E/k (nothing dropped)
+    against ``moe_dense`` within ``MESH_LAYER_TOL`` of max |y|; the
+    full-depth prefill at E/k with the dense run's experts forced at every
+    layer against its logits within ``PREFILL_RTOL`` of max |logit|, then
+    timed ``MESH_REPEATS`` times at E/k with its own experts (nothing
+    dropped: every pair computed, as ``moe_dense`` computes them); at
+    the config's capacity factor the prefill run with its routing
+    recorded, then timed ``MESH_REPEATS`` times, the dropped share of
+    (token, expert) pairs (``_ep_dropped`` on the recorded routing),
+    the requests whose experts flipped and the logits' distance, and one
+    profiled run with ``moe_ep``'s share of busy time; then the decode
+    step at ``MESH_DECODE`` off the mesh (experts recorded, timed) and
+    under ``assemble(..., "decode", ...)`` (the whole cache on the rank:
+    flash decode), held likewise at E/k with the dense step's experts
+    forced, and timed at the config's factor.  Every kernel launch on the
+    mesh is counted and exact.
+    The model is gathered back afterwards.  Returns (row, launches)."""
+    import torch
+    from torch.profiler import profile
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shardings import assemble, gather, place
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import ModelContext
+    cfg, dev = model.cfg, model.device
+    B, S = PREFILL[cfg.name]
+    Bd, Td = MESH_DECODE
+    nodrop = cfg.n_experts / cfg.experts_per_token
+    plain = ModelContext(attention_impl="pallas")
+    kw = dict(k=cfg.experts_per_token, n_experts=cfg.n_experts,
+              n_shared=cfg.n_shared_experts)
+    blk = model.blocks[0]
+
+    def timed(fn, n):
+        """The mean wall of ``n`` calls of ``fn``, each shape already run
+        once just before (no warm call here)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / n
+
+    # ---- off the mesh ----
+    with torch.no_grad():
+        x = model.input_embeds({"tokens": tokens})
+        pos_s = torch.arange(S, dtype=torch.int32, device=dev)
+        h = L.rmsnorm(blk.attend(x, model.windows[0], pos_s, plain),
+                      blk.mlp_norm, ctx=plain)
+        y_dense = moe.moe_dense(h, blk.moe_params(), cfg.experts_per_token
+                                ).float()
+        del x
+    dense = build_prefill_step(model, plain, last_only=True)
+    with _routing() as lead:
+        want = dense(tokens).float()
+
+    # ---- the prefill on the mesh ----
+    mesh = make_local_mesh(1, 1, device=dev)
+    ctx, sh = assemble(model, mesh, "prefill", B, S, attention_impl="pallas")
+    place(model, sh["params"], mesh)
+    tok_m = place(tokens, sh["batch"]["tokens"], mesh)
+    step = build_prefill_step(model, ctx, last_only=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    n_prefill = n_decode = 0
+    # the first MoE layer at E/k: nothing dropped
+    with torch.no_grad(), _routing() as l0:
+        y_ep = moe.moe_block(ctx.shard(h, "batch", "seq", "d_model"),
+                             blk.moe_params(), capacity_factor=nodrop,
+                             ctx=ctx, **kw).full_tensor().float()
+    pairs16, dropped16 = _ep_dropped(l0, cfg.n_experts, nodrop)
+    scale = y_dense.abs().max().item()
+    layer_diff = (y_ep - y_dense).abs().max().item()
+    if dropped16 or not layer_diff <= MESH_LAYER_TOL * scale:
+        raise AssertionError(
+            f"mesh {cfg.name} layer 0 at capacity factor {nodrop}: "
+            f"{dropped16} of {pairs16} pairs dropped, max |ep - dense| "
+            f"{layer_diff} > {MESH_LAYER_TOL} x max |y| {scale}")
+    del y_ep, y_dense, h
+    # the full depth at E/k, the dense run's experts forced
+    with _capacity(model, nodrop), _routing(lead):
+        got16 = step(tok_m).full_tensor().float()
+    n_prefill += 1
+    lscale = want.abs().max().item()
+    forced_diff = (got16 - want).abs().max().item()
+    if got16.shape != want.shape or not forced_diff <= PREFILL_RTOL * lscale:
+        raise AssertionError(
+            f"mesh {cfg.name} prefill at capacity factor {nodrop}, experts "
+            f"forced: max |mesh - dense| {forced_diff} > {PREFILL_RTOL} x "
+            f"max |logit| {lscale}")
+    # and timed at E/k, its own experts: every pair computed, as the
+    # dense path computes them (the forced run above warmed its shapes)
+    with _capacity(model, nodrop), _routing() as own16:
+        _, nodrop_wall = timed(lambda: step(tok_m), MESH_REPEATS)
+    pairs16_all, dropped16_all = _ep_dropped(own16, cfg.n_experts, nodrop)
+    del own16
+    if dropped16_all:
+        raise AssertionError(f"mesh {cfg.name} prefill at capacity factor "
+                             f"{nodrop}: {dropped16_all} pairs dropped")
+    # the config's capacity factor: drops, natural routing
+    with _routing() as own:
+        got = step(tok_m).full_tensor().float()
+    pairs, dropped = _ep_dropped(own, cfg.n_experts, cfg.capacity_factor)
+    flipped = _flipped(own, lead, B).tolist()
+    del own
+    _, mesh_wall = timed(lambda: step(tok_m), MESH_REPEATS)
+    n_prefill += 1 + 2 * MESH_REPEATS
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"mesh {cfg.name} prefill: logits not finite")
+    with _moe_ranges(), profile(activities=_activities(cfg)) as prof:
+        t0 = time.perf_counter()
+        step(tok_m)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    n_prefill += 1
+    prof_row = _device_rows(prof, pwall, f"mesh prefill {cfg.name}")
+    busy = prof_row["device_busy_s"]
+    for name, (us, calls) in _range_kernels(
+            prof, ("moe_block", "moe_ep")).items():
+        prof_row[name] = dict(us=us, calls=calls, share_of_busy=(
+            us / 1e6 / busy if isinstance(busy, float) else busy))
+    peak_prefill = torch.cuda.max_memory_allocated()
+    counts = _launches()
+    want_counts = {k: n * n_prefill
+                   for k, n in _want_launches(cfg, "prefill").items()}
+    _check_launches(counts, want_counts, f"mesh {cfg.name} prefill")
+    if KERNELS["flash_attention"].tc_launches != counts["flash_attention"]:
+        raise AssertionError(f"mesh {cfg.name}: flash-attention launches off "
+                             f"the tensor-core kernel")
+    # the decode step off the mesh (the cache allocated only now: beside
+    # the weights it leaves no room for the prefill's expert buffers)
+    gather(model)
+    g = torch.Generator(dev).manual_seed(3)
+    cache = model.init_cache(Bd, Td)
+    _fill_cache(cache, g)
+    dtok = torch.randint(0, cfg.vocab_size, (Bd,), generator=g, device=dev,
+                         dtype=torch.int32)
+    dpos = torch.full((Bd,), Td - 1, dtype=torch.int32, device=dev)
+    dstep = build_serve_step(model, plain)
+    with _routing() as dlead:
+        want_dec = dstep(cache, dtok, dpos)[0].float()
+    _, dec_wall = timed(lambda: dstep(cache, dtok, dpos), MESH_REPEATS)
+    # and on the mesh, the whole cache on the rank
+    _reset_launches()
+    ctx_d, shd = assemble(model, mesh, "decode", Bd, Td,
+                          attention_impl="pallas")
+    place(model, shd["params"], mesh)
+    cache_m = place(cache, shd["cache"], mesh)
+    dtok_m = place(dtok, shd["tokens"], mesh)
+    dpos_m = place(dpos, shd["tokens"], mesh)
+    mstep = build_serve_step(model, ctx_d)
+    with _capacity(model, nodrop), _routing(dlead):
+        got_dec = mstep(cache_m, dtok_m, dpos_m)[0].full_tensor().float()
+    dscale = want_dec.abs().max().item()
+    dec_diff = (got_dec - want_dec).abs().max().item()
+    if not dec_diff <= PREFILL_RTOL * dscale:
+        raise AssertionError(
+            f"mesh {cfg.name} decode {Bd}x{Td} at capacity factor {nodrop},"
+            f" experts forced: max |mesh - dense| {dec_diff} > "
+            f"{PREFILL_RTOL} x max |logit| {dscale}")
+    with _routing() as down:
+        dec_m, mdec_wall = timed(lambda: mstep(cache_m, dtok_m, dpos_m),
+                                 MESH_REPEATS)
+    dpairs, ddropped = _ep_dropped(down, cfg.n_experts, cfg.capacity_factor)
+    del down
+    n_decode += 1 + MESH_REPEATS
+    dec_counts = _launches()
+    _check_launches(dec_counts, _want_launches(cfg, "decode", n_decode),
+                    f"mesh {cfg.name} decode")
+    counts = {k: n + dec_counts[k] for k, n in counts.items()}
+    if not bool(torch.isfinite(dec_m[0].full_tensor()).all()):
+        raise AssertionError(f"mesh {cfg.name} decode: logits not finite")
+    peak = torch.cuda.max_memory_allocated()
+    gather(model)
+    del cache, cache_m
+    torch.cuda.empty_cache()
+    row = dict(
+        arch=cfg.name, mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        rules_batch=ctx.rules["batch"], moe_impl="ep (auto)",
+        batch=B, prompt=S, capacity_factor=cfg.capacity_factor,
+        nodrop_capacity_factor=nodrop,
+        layer0_nodrop=dict(max_abs_diff=layer_diff, max_abs_y=scale,
+                           pairs=pairs16, dropped=dropped16,
+                           tol=MESH_LAYER_TOL),
+        prefill_nodrop_forced=dict(max_abs_diff=forced_diff,
+                                   max_abs_logit=lscale, rtol=PREFILL_RTOL),
+        prefill=dict(wall_s=mesh_wall, tokens_s=B * S / mesh_wall,
+                     dense_wall_s=dense_wall, dense_tokens_s=B * S / dense_wall,
+                     nodrop_wall_s=nodrop_wall,
+                     nodrop_tokens_s=B * S / nodrop_wall,
+                     nodrop_pairs=pairs16_all, nodrop_dropped=dropped16_all,
+                     pairs=pairs, dropped=dropped, dropped_share=dropped / pairs,
+                     vs_dense_max_abs=(got - want).abs().max().item(),
+                     argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                        .float().mean().item()),
+                     flipped_requests=[i for i, f in enumerate(flipped) if f],
+                     peak_mem_gb=peak_prefill / 1e9, profile=prof_row),
+        decode=dict(batch=Bd, cache_len=Td, step_ms=mdec_wall * 1e3,
+                    dense_step_ms=dec_wall * 1e3,
+                    nodrop_forced_max_abs_diff=dec_diff,
+                    max_abs_logit=dscale, pairs=dpairs, dropped=ddropped,
+                    dropped_share=ddropped / max(dpairs, 1)),
+        peak_mem_gb=peak / 1e9, launches=counts)
+    return row, counts
+
+
+def _snapshot(model, state: dict) -> dict:
+    """A copy of ``model``'s weights and of its AdamW ``state``, on the
+    card."""
+    import torch
+    with torch.no_grad():
+        return dict(params={n: p.detach().clone()
+                            for n, p in model.named_parameters()},
+                    state={"m": {n: t.clone() for n, t in state["m"].items()},
+                           "v": {n: t.clone() for n, t in state["v"].items()},
+                           "step": state["step"].clone()})
+
+
+def mesh_train(model, snap: dict, ref: dict, batch, steps: int, M: int
+               ) -> dict:
+    """The mesh path's train step.  ``model`` has just taken the step
+    ``ref`` (its metrics) on ``batch`` off the mesh from the weights and
+    AdamW state ``snap`` (``_snapshot``); its weights are swapped back to
+    ``snap``'s, then, in a one-rank NCCL world, the model and the state
+    are placed on a (1, 1) mesh in the ZeRO layout of
+    ``assemble(..., "train", ...)`` (``opt_params``,
+    ``opt_state_shardings``) and take one step of ``batch`` with the
+    forward in the ``params`` layout, the run's optimizer (its schedule)
+    rebuilt.  Held within ``MESH_TRAIN_RTOL``: the loss and the grad norm
+    (relative to the step off the mesh), and each weight's change (max
+    |mesh - off| over max |off - before|: the grads redistributed to the
+    ZeRO placements, the moments updated on local shards, the step count
+    and the global norm all enter it).  Its wall, the world's set-up
+    included, beside the run's."""
+    import math
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shardings import (
+        assemble, gather, opt_state_shardings, place)
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import AdamW, cosine_warmup
+    cfg = model.cfg
+    t_all = time.perf_counter()
+    want_loss, want_norm = float(ref["loss"]), float(ref["grad_norm"])
+    off, update = {}, {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            off[name], p.data = p.data, snap["params"][name]
+            update[name] = (off[name] - p.data).abs().max()
+    snap["params"] = None
+    with _mesh_world():
+        mesh = make_local_mesh(1, 1, device=model.device)
+        ctx, sh = assemble(model, mesh, "train", TRAIN_BATCH, TRAIN_SEQ)
+        # the run's optimizer (launch.train.build_trainer's)
+        opt = AdamW(learning_rate=cosine_warmup(
+            TRAIN_LR, warmup_steps=max(steps // 20, 5), total_steps=steps),
+            decayed=model.decayed())
+        place(model, sh["opt_params"], mesh)
+        state = place(snap["state"],
+                      opt_state_shardings(sh["opt_params"], mesh), mesh)
+        snap["state"] = None
+        batch_m = place(batch, sh["batch"], mesh)
+        step = build_train_step(model, opt, ctx, M, compute=sh["params"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        met = step(state, batch_m)
+        loss = float(met["loss"])
+        wall = time.perf_counter() - t0
+        gnorm = float(met["grad_norm"])
+        peak = torch.cuda.max_memory_allocated()
+        gather(model)
+        del state, step
+    worst, worst_name = -1.0, None
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            d = ((p - off[name]).abs().max() / update[name]).item()
+            if not d <= worst:
+                worst, worst_name = d, name
+    del off
+    loss_dev = abs(loss - want_loss) / abs(want_loss)
+    norm_dev = abs(gnorm - want_norm) / abs(want_norm)
+    row = dict(arch=cfg.name, layers=cfg.n_layers,
+               mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               rules_batch=ctx.rules["batch"], batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, microbatches=M, loss=loss,
+               loss_off_mesh=want_loss, loss_rel_dev=loss_dev,
+               grad_norm=gnorm, grad_norm_off_mesh=want_norm,
+               grad_norm_rel_dev=norm_dev, worst_update_rel_dev=worst,
+               worst_update_leaf=worst_name, rtol=MESH_TRAIN_RTOL,
+               step_wall_s=wall, wall_s=time.perf_counter() - t_all,
+               peak_mem_gb=peak / 1e9)
+    print("mesh train:", json.dumps(row), flush=True)
+    if not (math.isfinite(loss) and math.isfinite(gnorm)
+            and loss_dev <= MESH_TRAIN_RTOL and norm_dev <= MESH_TRAIN_RTOL
+            and worst <= MESH_TRAIN_RTOL):
+        raise AssertionError(
+            f"mesh train {cfg.name}: loss {loss} vs {want_loss} off the "
+            f"mesh (rel {loss_dev}), grad norm {gnorm} vs {want_norm} (rel "
+            f"{norm_dev}), worst update {worst_name} rel {worst}: past "
+            f"{MESH_TRAIN_RTOL} or not finite")
+    return row
+
+
 def serve(arch: str, dev, done, walk=None, walk_dec=None) -> tuple:
     """Every serving phase of ``arch``: build, prefill (checked),
     ``walk`` (the per-layer checks) where given, prefill profile (with an
     MoE model's ``moe_block`` and ``moe_dense`` shares read from its
-    trace, and ``moe_share``), ``generate``, decode at context, and
-    ``walk_dec`` (the decode step's per-layer checks) where given.
+    trace, and ``moe_share``), ``generate``, decode at context,
+    ``walk_dec`` (the decode step's per-layer checks) where given, and for
+    ``MESH_SERVE`` the mesh path on the same model (``mesh_moe``).
     Returns the launches of each main-path run by path."""
     import torch
     model, init_s = build_lm(arch, dev)
@@ -3929,6 +4353,12 @@ def serve(arch: str, dev, done, walk=None, walk_dec=None) -> tuple:
         print("serve decode layers:", json.dumps(walk_dec(model)))
         done(f"{arch} decode by layer")
     print(f"{arch} peak memory: {torch.cuda.max_memory_allocated() / 1e9} GB")
+    if arch == MESH_SERVE:
+        with _mesh_world():
+            row, by_path["mesh"] = mesh_moe(model, tokens,
+                                            prefill["wall_s"])
+        print("mesh serve:", json.dumps(row))
+        done(f"{arch} mesh")
     del model, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -4036,6 +4466,10 @@ def main() -> int:
     by_path["train"], train_rows = drive_train_phase(dev, done)
     by_path["stream"] = drive_stream_phase(
         dev, done, train_rows["granite-8b"]["step_wall_s"])
+    mesh = by_path["mesh"]
+    if not all(mesh[k] for k in ("flash_attention", "rmsnorm",
+                                 "flash_decode")):
+        raise AssertionError(f"mesh: kernel launches {mesh}")
     print("phase seconds:", json.dumps(phase_s))
     for name, row in kernels.items():
         row["launches"] = sum(c.get(name, 0) for c in by_path.values())

@@ -42,6 +42,12 @@
   error-feedback gradient exchange.  Training runs autograd through the
   plain paths, as the reference's does: the hand-written kernels are
   forward-only and raise under grad.
+* The device mesh: ``launch.mesh`` (``make_local_mesh``,
+  ``make_production_mesh``), ``launch.shardings`` (the reference's
+  rule tables, ``assemble``, ``place``) and
+  ``ModelContext(mesh=..., rules=...)``: the models on DTensors, expert
+  parallelism (``models.moe.moe_ep``), xLSTM's ``ring`` and ``vtp``
+  paths, the train step's ZeRO layout.
 
 The package imports ``torch`` and NumPy only.
 """

@@ -11,6 +11,16 @@ serve_step: one decode step against the model's cache (the KV cache, and
   the recurrent state of the hybrid and xLSTM families), updated in place;
 prefill_step: full forward returning last-position logits, on token ids
 or a batch dict of any family.
+
+Under a mesh (``ctx`` from ``launch.shardings.assemble``) the model's
+parameters, the batch and the cache are DTensors (``shardings.place``:
+the train step's parameters in the ZeRO layout, ``opt_params``, as the
+reference jits it), and so are the outputs.  A microbatched train step
+splits each rank's own rows of a ``Shard(0)`` batch into M parts, so a
+microbatch gathers the i-th part of every rank's rows rather than a
+global slice of B/M rows: another grouping of the rows, the same mean
+gradient (M equal-sized microbatch means), and no communication.  On
+one rank the two groupings are the same.
 """
 
 from __future__ import annotations
@@ -20,20 +30,32 @@ from typing import Optional
 import torch
 
 from repro_torch.models import zoo
-from repro_torch.models.sharding import ModelContext
+from repro_torch.dtensor import DTensor, is_dtensor, whole
+from repro_torch.models.sharding import ModelContext, mesh_scope
 from repro_torch.models.zoo import LM
 from repro_torch.optim.adamw import AdamW
 
 
-def build_loss_fn(model: LM, ctx: Optional[ModelContext]):
+def build_loss_fn(model: LM, ctx: Optional[ModelContext],
+                  compute: Optional[dict] = None):
+    """``loss_fn(batch)``: the model's loss.  ``compute``: placements by
+    parameter name (``assemble``'s ``params``) that the forward takes
+    each parameter to from its own (the masters' ``opt_params``): the
+    ZeRO gather, whose backward reduce-scatters the gradient."""
     def loss_fn(batch: dict) -> torch.Tensor:
-        return zoo.loss(model, batch, ctx)
+        if compute is None:
+            return zoo.loss(model, batch, ctx)
+        mesh = ctx.mesh
+        return zoo.loss(model, batch, ctx, params={
+            n: p.redistribute(mesh, compute[n])
+            for n, p in model.named_parameters()})
     return loss_fn
 
 
 def build_train_step(model: LM, optimizer: AdamW,
                      ctx: Optional[ModelContext],
-                     microbatches: Optional[int] = None):
+                     microbatches: Optional[int] = None,
+                     compute: Optional[dict] = None):
     """``train_step(opt_state, batch) -> {"loss", "grad_norm", "lr"}``
     (0-d tensors on the model's device), after the reference's: the batch
     (B, ...) is cut into ``M = microbatches or cfg.microbatches``
@@ -45,31 +67,36 @@ def build_train_step(model: LM, optimizer: AdamW,
 
     The model holds f32 masters that require grad (``build_model(...,
     trainable=True)``), and the optimizer carries the model's decayed set
-    (``AdamW(decayed=model.decayed())``)."""
+    (``AdamW(decayed=model.decayed())``).  On a mesh the masters lie in
+    the ZeRO layout (``assemble``'s ``opt_params``) and ``compute`` gives
+    the layout the forward runs in (its ``params``), as the reference's
+    jit gathers them; the moments follow the masters."""
     M = microbatches or model.cfg.microbatches
-    params = dict(model.named_parameters())
-    loss_fn = build_loss_fn(model, ctx)
+    loss_fn = build_loss_fn(model, ctx, compute)
 
     def train_step(opt_state: dict, batch: dict) -> dict:
+        # read at each step: shardings.place replaces the parameters
+        params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         if M > 1:
-            mbatch = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])
-                      for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=model.device)
             for i in range(M):
-                mb_loss = loss_fn({k: v[i] for k, v in mbatch.items()})
-                mb_loss.backward()
-                loss = loss + mb_loss.detach()
-            with torch.no_grad():
+                mb_loss = loss_fn({k: _microbatch(v, M, i)
+                                   for k, v in batch.items()})
+                with mesh_scope(ctx):
+                    mb_loss.backward()
+                    loss = loss + mb_loss.detach()
+            with torch.no_grad(), mesh_scope(ctx):
                 for p in params.values():
                     if p.grad is not None:
                         p.grad.div_(M)
-            loss = loss / M
+                loss = loss / M
         else:
             loss = loss_fn(batch)
-            loss.backward()
+            with mesh_scope(ctx):
+                loss.backward()
             loss = loss.detach()
         # a weight the loss does not reach (an xLSTM block's leaves of the
         # other kind) has no .grad; the reference's gradient there is
@@ -79,9 +106,21 @@ def build_train_step(model: LM, optimizer: AdamW,
         _, _, metrics = optimizer.update(grads, opt_state, params)
         for p in params.values():
             p.grad = None
-        return {"loss": loss, **metrics}
+        return {k: whole(v) for k, v in {"loss": loss, **metrics}.items()}
 
     return train_step
+
+
+def _microbatch(v: torch.Tensor, M: int, i: int) -> torch.Tensor:
+    """The i-th of M microbatches of ``v`` (B, ...): rows i B/M to (i+1)
+    B/M, or on a DTensor the i-th part of each rank's own rows (see the
+    module docstring)."""
+    if not is_dtensor(v):
+        return v.reshape(M, v.shape[0] // M, *v.shape[1:])[i]
+    local = v.to_local()
+    part = local.reshape(M, local.shape[0] // M, *local.shape[1:])[i]
+    return DTensor.from_local(part, v.device_mesh, v.placements,
+                              run_check=False)
 
 
 def build_serve_step(model: LM, ctx: ModelContext):

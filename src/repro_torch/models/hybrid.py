@@ -36,7 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import Mamba2, init_mamba2_state
 from repro_torch.models.remat import checkpointed
-from repro_torch.models.sharding import ModelContext
+from repro_torch.models.sharding import ModelContext, mesh_scope
 from repro_torch.models.transformer import (
     ACT_DTYPE, INIT_SCALE, Block, _host, _numpy, _weight, decayed_names,
     weight_kinds)
@@ -123,19 +123,22 @@ class HybridLM(nn.Module):
         cfg = self.cfg
         if isinstance(tokens, Mapping):
             tokens = tokens["tokens"]
-        x = L.embed(tokens, self.embed.to(ACT_DTYPE))
-        positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=x.device)
-        per = cfg.mamba_per_block
-        for b in range(cfg.n_macro_blocks):
-            x = checkpointed(cfg, self._macro, x,
-                             range(b * per, (b + 1) * per), positions, ctx)
-        for i in range(cfg.n_macro_blocks * per, cfg.n_layers):
-            x = x + self.mamba[i](x, ctx)
-        if last_only:
-            x = x[:, -1:]
-        x = L.rmsnorm(x, self.final_norm, ctx=ctx)
-        return L.unembed(x, self.lm_head, self.cfg.final_logit_softcap)
+        with mesh_scope(ctx):
+            x = L.embed(tokens, self.embed.to(ACT_DTYPE), ctx)
+            positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                     device=x.device)
+            per = cfg.mamba_per_block
+            for b in range(cfg.n_macro_blocks):
+                x = checkpointed(cfg, self._macro, x,
+                                 range(b * per, (b + 1) * per), positions,
+                                 ctx)
+            for i in range(cfg.n_macro_blocks * per, cfg.n_layers):
+                x = x + self.mamba[i](x, ctx)
+            if last_only:
+                x = x[:, -1:]
+            x = L.rmsnorm(x, self.final_norm, ctx=ctx)
+            logits = L.unembed(x, self.lm_head, self.cfg.final_logit_softcap)
+            return ctx.shard(logits, "batch", "seq", "vocab")
 
     def prefill(self, tokens: "torch.Tensor | Mapping",
                 ctx: Optional[ModelContext] = None) -> torch.Tensor:
@@ -162,17 +165,19 @@ class HybridLM(nn.Module):
         Returns (logits (B, V), cache); the cache is updated in place (the
         reference returns a new one)."""
         ctx = ctx or ModelContext()
-        x = L.embed(tokens[:, None], self.embed.to(ACT_DTYPE))
-        app = 0
-        for i, blk in enumerate(self.mamba):
-            st = {k: v[i] for k, v in cache["mamba"].items()}
-            x = x + blk(x, ctx, st)
-            if self._shared_after(i):
-                x = self.shared_attn.decode(x, cache["k"][app],
-                                            cache["v"][app], pos, 0, ctx)
-                app += 1
-        x = L.rmsnorm(x[:, 0], self.final_norm, ctx=ctx)
-        return L.unembed(x, self.lm_head, self.cfg.final_logit_softcap), cache
+        with mesh_scope(ctx):
+            x = L.embed(tokens[:, None], self.embed.to(ACT_DTYPE))
+            app = 0
+            for i, blk in enumerate(self.mamba):
+                st = {k: v[i] for k, v in cache["mamba"].items()}
+                x = x + blk(x, ctx, st)
+                if self._shared_after(i):
+                    x = self.shared_attn.decode(x, cache["k"][app],
+                                                cache["v"][app], pos, 0, ctx)
+                    app += 1
+            x = L.rmsnorm(x[:, 0], self.final_norm, ctx=ctx)
+            return (L.unembed(x, self.lm_head, self.cfg.final_logit_softcap),
+                    cache)
 
 
 @torch.no_grad()

@@ -17,6 +17,12 @@ Attention implementations (``ModelContext.attention_impl``):
 K/V are expanded to the full head count for train/prefill attention;
 decode attends with a grouped einsum against the KV cache, or the flash
 decode kernel.
+
+Under a mesh (``ModelContext.distributed``) the tensors are DTensors and
+the layers the same code: the kernels run per shard
+(:mod:`repro_torch.kernels.ops`), and decode against a cache sharded
+along its sequence over more than one rank takes the grouped einsum
+under every ``attention_impl``, as the reference's does.
 """
 
 from __future__ import annotations
@@ -25,7 +31,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.dtensor import (
+    is_dtensor, local_span, on_mesh, spread_over, whole)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attention import flash_decode_ref
 from repro_torch.kernels.flash_attention import (
@@ -139,8 +149,11 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
         thresh = ctx.blocked_threshold if ctx is not None else 2048
         impl = "blocked" if q.shape[1] > thresh else "reference"
     fn = attention_blocked if impl == "blocked" else attention_reference
-    return fn(q, k, v, q_pos, k_pos, causal=causal, window=window,
-              logit_cap=logit_cap, scale=scale, ctx=ctx)
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap, scale=scale)
+    if is_dtensor(q):
+        # per request and per head, on each rank's shard
+        return kops.attention_on_shards(fn, q, k, v, q_pos, k_pos, **kw)
+    return fn(q, k, v, q_pos, k_pos, ctx=ctx, **kw)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, logit_cap=0.0,
@@ -150,12 +163,14 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, logit_cap=0.0,
 
     q: (B, H, hd); k_cache/v_cache: (B, T, KV, hd); pos: (B,) index of the
     current token (already written into the cache).  Grouped einsum, no
-    KV expansion (the flash decode kernel under ``pallas``); keys past
-    ``pos`` (and outside the window) are masked.
+    KV expansion (the flash decode kernel under ``pallas``, unless the
+    cache's sequence is sharded over more than one rank: the einsum then
+    runs on DTensors, as the reference's does under every impl); keys
+    past ``pos`` (and outside the window) are masked.
     """
     fn = (kops.flash_decode
           if ctx is not None and ctx.attention_impl == "pallas"
-          else flash_decode_ref)
+          and not spread_over(k_cache, 1) else flash_decode_ref)
     return fn(q, k_cache, v_cache, pos, window=window, logit_cap=logit_cap,
               scale=scale)
 
@@ -165,18 +180,62 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, logit_cap=0.0,
 # --------------------------------------------------------------------------
 
 
-def swiglu(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
-           ) -> torch.Tensor:
+def swiglu(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+           ctx: Optional[ModelContext] = None) -> torch.Tensor:
     """wi: (D, 2F) fused gate+up; wo: (F, D).  The output product runs
     through :func:`~repro_torch.models.remat.mlp_output`, which tells the
     dots remat policy whether backward reads it."""
     h = x @ wi.to(x.dtype)
     gate, up = h.chunk(2, dim=-1)
-    return mlp_output(F.silu(gate) * up, wo.to(x.dtype))
+    h = F.silu(gate) * up
+    if ctx is not None and x.ndim == 3:
+        h = ctx.shard(h, "batch", "attn_seq", "d_ff")
+    return mlp_output(h, wo.to(x.dtype))
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(tokens: torch.Tensor, table: torch.Tensor,
+          ctx: Optional[ModelContext] = None) -> torch.Tensor:
+    out = (_embed_on_shards(tokens, table) if is_dtensor(table)
+           else table[whole(tokens)])
+    if ctx is not None and out.ndim == 3:
+        out = ctx.shard(out, "batch", "seq", "d_model")
+    return out
+
+
+def _embed_on_shards(tokens: torch.Tensor, table: torch.Tensor
+                     ) -> torch.Tensor:
+    """The lookup of a vocab-sharded table (a DTensor), per rank under
+    ``local_map``: each rank looks up the tokens of its rows that fall in
+    its rows of the vocab (zero for the rest), so the result is partial
+    over the mesh dims that split the vocab.  A table sharded along
+    d_model (the ZeRO layout) is gathered along it first."""
+    mesh = table.device_mesh
+    tokens = on_mesh(tokens, mesh)
+    pt = tuple(Shard(0) if p.is_shard(0) and tokens.ndim > 0 else Replicate()
+               for p in tokens.placements)
+    ptab = tuple(Shard(0) if p.is_shard(0) and mesh.size(i) > 1
+                 else Replicate() for i, p in enumerate(table.placements))
+    table = table.redistribute(mesh, ptab)
+    v0, vl = local_span(table, 0)
+    split = [t.is_shard() and v.is_shard() and mesh.size(i) > 1
+             for i, (t, v) in enumerate(zip(pt, ptab))]
+    if any(split):
+        raise ValueError("embed: the batch and the vocab split over one "
+                         "mesh dim")
+    out_p = [Partial() if v.is_shard() else t for t, v in zip(pt, ptab)]
+    g_tab = tuple(v if v.is_shard() else
+                  Partial() if t.is_shard() and mesh.size(i) > 1
+                  else Replicate() for i, (t, v) in enumerate(zip(pt, ptab)))
+
+    def local(tok, tab):
+        ok = (tok >= v0) & (tok < v0 + vl)
+        rows = tab[(tok.long() - v0).clamp(0, vl - 1)]
+        return torch.where(ok[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+    return local_map(local, out_placements=out_p, in_placements=(pt, ptab),
+                     in_grad_placements=(pt, g_tab), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, table)
 
 
 def unembed(x: torch.Tensor, w: torch.Tensor, final_cap: float = 0.0
@@ -191,7 +250,12 @@ def unembed(x: torch.Tensor, w: torch.Tensor, final_cap: float = 0.0
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token CE. logits (B,S,V), labels (B,S)."""
+    """Mean next-token CE. logits (B,S,V), labels (B,S).  Vocab-sharded
+    logits (a DTensor) are gathered along the vocab first."""
+    if is_dtensor(logits) and spread_over(logits, -1):
+        v = logits.ndim - 1
+        logits = logits.redistribute(logits.device_mesh, tuple(
+            Replicate() if p.is_shard(v) else p for p in logits.placements))
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]

@@ -205,6 +205,8 @@ class Mamba2(nn.Module):
         Bb, S, _ = x.shape
         carry = state["conv"] if state is not None else None
         z, xh, dt, A, Bm, Cm, new_carry = self.ssd_inputs(x, ctx, carry)
+        if ctx is not None:
+            xh = ctx.shard(xh, "batch", "seq", "ssm_heads", "head_dim")
         if state is None:
             y, _ = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(),
                                chunk=min(CHUNK, S), ctx=ctx)

@@ -53,12 +53,15 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dtensor import is_dtensor, local_span, on_mesh, whole
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_block
 from repro_torch.models.remat import checkpointed, output_unread
-from repro_torch.models.sharding import ModelContext
+from repro_torch.models.sharding import ModelContext, mesh_scope
 
 #: standard deviation of the random init, the reference's ``dense_init``
 INIT_SCALE = 0.02
@@ -123,7 +126,8 @@ class Block(nn.Module):
             self.post_attn_norm = _weight(D, **norm)
             self.post_mlp_norm = _weight(D, **norm)
 
-    def _attn_proj(self, x: torch.Tensor, positions: torch.Tensor):
+    def _attn_proj(self, x: torch.Tensor, positions: torch.Tensor,
+                   ctx: Optional[ModelContext] = None):
         B, S, _ = x.shape
         cfg = self.cfg
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -132,6 +136,8 @@ class Block(nn.Module):
         v = (x @ self.wv.to(x.dtype)).reshape(B, S, KV, hd)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
+        if ctx is not None:
+            q = ctx.shard(q, "batch", "attn_seq", "heads", "head_dim")
         return q, k, v
 
     def moe_params(self) -> dict:
@@ -149,6 +155,7 @@ class Block(nn.Module):
         the MLP's output (``remat.output_unread``)."""
         cfg = self.cfg
         h = L.rmsnorm(x, self.mlp_norm, ctx=ctx)
+        h = ctx.shard(h, "batch", "seq", "d_model")
         with output_unread(unit_end and not cfg.post_norms):
             if cfg.is_moe:
                 m = moe_block(h, self.moe_params(), k=cfg.experts_per_token,
@@ -156,10 +163,10 @@ class Block(nn.Module):
                               n_shared=cfg.n_shared_experts,
                               capacity_factor=cfg.capacity_factor, ctx=ctx)
             else:
-                m = L.swiglu(h, self.wi, self.wo_mlp)
+                m = L.swiglu(h, self.wi, self.wo_mlp, ctx)
         if cfg.post_norms:
             m = L.rmsnorm(m, self.post_mlp_norm, ctx=ctx)
-        return x + m
+        return x + ctx.shard(m, "batch", "seq", "d_model")
 
     def attend(self, x: torch.Tensor, window: int, positions: torch.Tensor,
                ctx: ModelContext) -> torch.Tensor:
@@ -167,14 +174,14 @@ class Block(nn.Module):
         B, S, _ = x.shape
         cfg = self.cfg
         h = L.rmsnorm(x, self.attn_norm, ctx=ctx)
-        q, k, v = self._attn_proj(h, positions)
+        q, k, v = self._attn_proj(h, positions, ctx)
         a = L.attention(q, k, v, positions, positions, causal=True,
                         window=window, logit_cap=cfg.attn_logit_softcap,
                         ctx=ctx)
         a = a.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo.to(x.dtype)
         if cfg.post_norms:
             a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
-        return x + a
+        return x + ctx.shard(a, "batch", "seq", "d_model")
 
     def forward(self, x: torch.Tensor, window: int, positions: torch.Tensor,
                 ctx: ModelContext, unit_end: bool = False) -> torch.Tensor:
@@ -191,9 +198,11 @@ class Block(nn.Module):
         B = x.shape[0]
         cfg = self.cfg
         h = L.rmsnorm(x, self.attn_norm, ctx=ctx)
-        q, k, v = self._attn_proj(h, pos[:, None])
+        q, k, v = self._attn_proj(h, pos[:, None], ctx)
         _cache_write(k_l, k[:, 0], pos)
         _cache_write(v_l, v[:, 0], pos)
+        k_l = ctx.shard(k_l, "batch", "kv_seq", "kv_heads", "head_dim")
+        v_l = ctx.shard(v_l, "batch", "kv_seq", "kv_heads", "head_dim")
         a = L.decode_attention(q[:, 0], k_l, v_l, pos, window=window,
                                logit_cap=cfg.attn_logit_softcap, ctx=ctx)
         a = a.reshape(B, cfg.n_heads * cfg.hd) @ self.wo.to(x.dtype)
@@ -214,11 +223,35 @@ def _cache_write(cache_l: torch.Tensor, kv_t: torch.Tensor,
                  pos: torch.Tensor) -> None:
     """cache_l: (B, T, KV, hd); kv_t: (B, KV, hd); pos: (B,).  Writes row b
     at ``pos[b]`` in place; a position outside [0, T) is dropped (the
-    reference's ``mode="drop"``), without a host sync."""
+    reference's ``mode="drop"``), without a host sync.
+
+    On a cache placed on a mesh (a DTensor) each rank writes its own
+    shard: the rows of its requests, at the positions that fall in its
+    slice of the sequence (the reference's scatter "stays local under a
+    seq-sharded cache")."""
+    if is_dtensor(cache_l):
+        mesh = cache_l.device_mesh
+        t0, _ = local_span(cache_l, 1)
+        pc = cache_l.placements
+        pb = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pc)
+
+        def local(c, kv, p):
+            _write_rows(c, kv, p, t0)
+            return c
+        local_map(local, out_placements=list(pc), in_placements=(pc, pb, pb),
+                  device_mesh=mesh, redistribute_inputs=True)(
+            cache_l, on_mesh(kv_t, mesh), on_mesh(pos, mesh))
+        return
+    _write_rows(cache_l, whole(kv_t), whole(pos), 0)
+
+
+def _write_rows(cache_l: torch.Tensor, kv_t: torch.Tensor, pos: torch.Tensor,
+                t0: int) -> None:
+    """:func:`_cache_write` on a slice of the sequence starting at ``t0``."""
     B, T = cache_l.shape[:2]
     rows = torch.arange(B, device=cache_l.device)
-    ok = ((pos >= 0) & (pos < T))[:, None, None]
-    idx = pos.long().clamp(0, T - 1)
+    ok = ((pos >= t0) & (pos < t0 + T))[:, None, None]
+    idx = (pos.long() - t0).clamp(0, T - 1)
     cache_l[rows, idx] = torch.where(ok, kv_t.to(cache_l.dtype),
                                      cache_l[rows, idx])
 
@@ -290,14 +323,15 @@ class TransformerLM(nn.Module):
                                unit_end=i == layers[-1])
         return x
 
-    def input_embeds(self, batch: Mapping) -> torch.Tensor:
+    def input_embeds(self, batch: Mapping,
+                     ctx: Optional[ModelContext] = None) -> torch.Tensor:
         """The residual stream's input (B, S, D), the reference's
         ``_input_embeds``: ``embeds`` as given (audio stub), or the
         token embeddings in the activation dtype with ``patch_embeds``
         cast to it and put before them (vlm stub)."""
         if "embeds" in batch:
             return batch["embeds"]
-        x = L.embed(batch["tokens"], self.embed.to(ACT_DTYPE))
+        x = L.embed(batch["tokens"], self.embed.to(ACT_DTYPE), ctx)
         if "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
         return x
@@ -312,18 +346,20 @@ class TransformerLM(nn.Module):
         reference's checkpoint units: one layer, or a gemma2 local/global
         pair."""
         ctx = ctx or ModelContext()
-        x = self.input_embeds(batch if isinstance(batch, Mapping)
-                              else {"tokens": batch})
-        positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=x.device)
-        per = 2 if self.cfg.attn_pattern == "local_global" else 1
-        for i in range(0, self.cfg.n_layers, per):
-            x = checkpointed(self.cfg, self._unit, x, range(i, i + per),
-                             positions, ctx, policy=self.cfg.remat_policy)
-        if last_only:
-            x = x[:, -1:]
-        x = L.rmsnorm(x, self.final_norm, ctx=ctx)
-        return L.unembed(x, self.head(), self.cfg.final_logit_softcap)
+        with mesh_scope(ctx):
+            x = self.input_embeds(batch if isinstance(batch, Mapping)
+                                  else {"tokens": batch}, ctx)
+            positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                     device=x.device)
+            per = 2 if self.cfg.attn_pattern == "local_global" else 1
+            for i in range(0, self.cfg.n_layers, per):
+                x = checkpointed(self.cfg, self._unit, x, range(i, i + per),
+                                 positions, ctx, policy=self.cfg.remat_policy)
+            if last_only:
+                x = x[:, -1:]
+            x = L.rmsnorm(x, self.final_norm, ctx=ctx)
+            logits = L.unembed(x, self.head(), self.cfg.final_logit_softcap)
+            return ctx.shard(logits, "batch", "seq", "vocab")
 
     def prefill(self, batch: "torch.Tensor | Mapping",
                 ctx: Optional[ModelContext] = None) -> torch.Tensor:
@@ -343,11 +379,14 @@ class TransformerLM(nn.Module):
         Returns (logits (B, V), cache); the cache is updated in place (the
         reference returns a new one)."""
         ctx = ctx or ModelContext()
-        x = L.embed(tokens[:, None], self.embed.to(ACT_DTYPE))
-        for i, (blk, window) in enumerate(zip(self.blocks, self.windows)):
-            x = blk.decode(x, cache["k"][i], cache["v"][i], pos, window, ctx)
-        x = L.rmsnorm(x[:, 0], self.final_norm, ctx=ctx)
-        return L.unembed(x, self.head(), self.cfg.final_logit_softcap), cache
+        with mesh_scope(ctx):
+            x = L.embed(tokens[:, None], self.embed.to(ACT_DTYPE))
+            for i, (blk, window) in enumerate(zip(self.blocks, self.windows)):
+                x = blk.decode(x, cache["k"][i], cache["v"][i], pos, window,
+                               ctx)
+            x = L.rmsnorm(x[:, 0], self.final_norm, ctx=ctx)
+            return (L.unembed(x, self.head(), self.cfg.final_logit_softcap),
+                    cache)
 
 
 @torch.no_grad()

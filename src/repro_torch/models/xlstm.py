@@ -29,10 +29,19 @@ reference's.
 The decode cache is the reference's list of per-block states, f32:
 ``(C (B, nh, hd, hd), n (B, nh, hd))`` for an mLSTM block and ``(c, n,
 h)``, each (B, d_in), for an sLSTM block; a decode step updates it in
-place (the reference returns a new one).  The reference's mesh paths
-(the ``vtp`` merged weights, the ``ring`` sequence-parallel mLSTM and
-its gathered sLSTM scan) need ``ctx.rules`` and a mesh, which the port's
-``ModelContext`` does not have; they are not ported.
+place (the reference returns a new one).
+
+The reference's mesh paths, selected by ``ctx.rules``
+(``launch.shardings.make_rules``): under ``parallelism="vtp"`` an mLSTM
+block folds ``up_proj``'s x half into ``qkv`` and ``gates`` (merged
+weights: every projection reads the normed input once) and shards the
+value dim; under ``"ring"`` (the sequence over ``model``) the sLSTM's
+pre-activations are gathered to whole sequences for its scan and its
+output re-sharded, and the mLSTM runs on each rank's slice of the
+sequence with its incoming state from one all_gather of every rank's
+affine state map (:func:`mlstm_seq_parallel`).  On DTensors the sLSTM
+scan (and, under grad, its written-out backward) runs on each rank's
+requests through ``local_map``.
 """
 
 from __future__ import annotations
@@ -41,13 +50,17 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dtensor import is_dtensor, keep_shards, on_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.remat import checkpointed
-from repro_torch.models.sharding import ModelContext
+from repro_torch.models.sharding import ModelContext, mesh_scope, placements
 from repro_torch.models.transformer import (
     ACT_DTYPE, INIT_SCALE, _host, _numpy, _weight, decayed_names,
     weight_kinds)
@@ -67,9 +80,18 @@ _MASKED = -1e30
 
 
 def _gates(i_gate: torch.Tensor, f_gate: torch.Tensor) -> tuple:
-    """(log forget gate <= 0, clamped input-gate logit), both f32."""
-    return (F.logsigmoid(f_gate.float()),
-            i_gate.float().clamp(-IGATE_CLAMP, IGATE_CLAMP))
+    """(log forget gate <= 0, clamped input-gate logit), both f32.  On a
+    DTensor the log-sigmoid runs per shard (DTensor has no rule for its
+    backward)."""
+    f = f_gate.float()
+    if is_dtensor(f):
+        pf = keep_shards(f, {d: d for d in range(f.ndim)})
+        lf = local_map(F.logsigmoid, out_placements=list(pf),
+                       in_placements=(pf,), device_mesh=f.device_mesh,
+                       redistribute_inputs=True)(f)
+    else:
+        lf = F.logsigmoid(f)
+    return lf, i_gate.float().clamp(-IGATE_CLAMP, IGATE_CLAMP)
 
 
 def mlstm_chunked(q, k, v, i_gate, f_gate, chunk: int = MLSTM_CHUNK,
@@ -158,6 +180,85 @@ def mlstm_decode_step(q, k, v, i_gate, f_gate, state):
     den = (qf * n).sum(-1)
     out = num / torch.clamp(den.abs(), min=1.0)[..., None]
     return out.to(q.dtype), (C, n)
+
+
+# --------------------------------------------------------------------------
+# sequence-parallel mLSTM (ring mode): affine state exchange
+# --------------------------------------------------------------------------
+#
+# Under sequence sharding (S over `model`), every projection and norm is
+# position-wise (no comm); only the inter-chunk state recurrence crosses
+# ranks.  That recurrence is an AFFINE map per rank r:
+#     s_out = s_in * D_r + F_r
+# (D_r = the product of the rank's chunk decays, F_r = its final local
+# state from a zero start), and affine maps compose associatively: each
+# rank all-gathers every (D_r, F_r) once and computes its incoming state
+# in closed form,
+#     s_in(r) = sum_{r'<r} F_{r'} * prod_{r'<r''<r} D_{r''}.
+
+
+def _mlstm_rank_summary(k, v, i_gate, f_gate, chunk: int) -> tuple:
+    """This rank's (log-decay total (B, nh), final C (B, nh, hd, hd),
+    final n (B, nh, hd)) from a zero state: the affine map (D_r, F_r) of
+    its slice of the sequence, f32."""
+    B, S, nh, hd = k.shape
+    nc = max(S // chunk, 1)
+    Q = S // nc
+    lf, ig = _gates(i_gate, f_gate)
+
+    def heads(t):                           # (B,S,nh,...) -> (B,nc,nh,Q,...)
+        return t.float().reshape(B, nc, Q, nh, *t.shape[3:]).transpose(2, 3)
+
+    kc, vc, lfc, igc = heads(k), heads(v), heads(lf), heads(ig)
+    cum = lfc.cumsum(-1)
+    total = cum[..., -1]                                # (B,nc,nh)
+    kw = kc * torch.exp(total[..., None] - cum + igc)[..., None]
+    states = kw.transpose(-1, -2) @ vc                  # (B,nc,nh,hd,hd)
+    nstates = kw.sum(-2)                                # (B,nc,nh,hd)
+    sC = torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=k.device)
+    sn = torch.zeros((B, nh, hd), dtype=torch.float32, device=k.device)
+    for st_c, nst_c, d in zip(states.unbind(1), nstates.unbind(1),
+                              torch.exp(total).unbind(1)):
+        sC = sC * d[..., None, None] + st_c
+        sn = sn * d[..., None] + nst_c
+    return total.sum(1), sC, sn
+
+
+def mlstm_seq_parallel(q, k, v, i_gate, f_gate, *, mesh, batch_axes,
+                       chunk: int = MLSTM_CHUNK):
+    """mLSTM with the sequence dim sharded over ``model``, each rank's
+    slice under ``local_map``.  q, k, v: (B, S, nh, hd); gates (B, S,
+    nh); global shapes, S sharded over ``model``.  Returns h (B, S, nh,
+    hd) in q's dtype, sharded likewise."""
+    n_model = mesh["model"].size()
+    group = mesh.get_group("model")
+    rank = mesh.get_local_rank("model")
+    io = placements((batch_axes, "model", None, None), mesh)
+    gp = placements((batch_axes, "model", None), mesh)
+
+    def body(q_l, k_l, v_l, ig_l, fg_l):
+        logD, fC, fN = _mlstm_rank_summary(k_l, v_l, ig_l, fg_l, chunk)
+        # every rank's affine map: (n, B, nh, ...)
+        logDs = funcol.all_gather_tensor_autograd(logD[None], 0, group)
+        fCs = funcol.all_gather_tensor_autograd(fC[None], 0, group)
+        fNs = funcol.all_gather_tensor_autograd(fN[None], 0, group)
+        # incoming state: sum_{r<rank} F_r * exp(decay between r and rank)
+        csum = logDs.cumsum(0)                            # inclusive prefix
+        upto = csum[rank - 1] if rank > 0 else torch.zeros_like(csum[0])
+        before = (torch.arange(n_model, device=q_l.device)
+                  < rank)[:, None, None]
+        wgt = torch.where(before, torch.exp(
+            torch.where(before, upto[None] - csum, 0.0)), 0.0)  # (n,B,nh)
+        inC = (wgt[..., None, None] * fCs).sum(0)
+        inN = (wgt[..., None] * fNs).sum(0)
+        out, _ = mlstm_chunked(q_l, k_l, v_l, ig_l, fg_l, chunk=chunk,
+                               init_state=(inC, inN))
+        return out
+
+    return local_map(body, out_placements=list(io),
+                     in_placements=(io, io, io, gp, gp), device_mesh=mesh,
+                     redistribute_inputs=True)(
+        *(on_mesh(t, mesh) for t in (q, k, v, i_gate, f_gate)))
 
 
 # --------------------------------------------------------------------------
@@ -251,7 +352,23 @@ def _slstm_zero_state(B: int, d_in: int, device) -> tuple:
 def slstm_scan(zifo, r_diag, n_heads: int, init_state=None):
     """zifo: (B, S, 4, d_in) pre-activations for z, i, f, o; r_diag: (4,
     d_in) diagonal recurrent weights.  Returns (h (B, S, d_in) f32, state
-    (c, n, h)).  Under grad it runs :class:`_SLSTMScan`."""
+    (c, n, h)).  Under grad it runs :class:`_SLSTMScan`.  On a DTensor
+    ``zifo`` (from a zero state) each rank scans its requests, the
+    sequence and channels whole, through ``local_map``."""
+    if is_dtensor(zifo):
+        if init_state is not None:
+            raise ValueError("slstm_scan: a DTensor scan starts from zero")
+        mesh = zifo.device_mesh
+        pz = keep_shards(zifo, {0: 0})
+        pb = [Shard(0) if p.is_shard(0) else Replicate() for p in pz]
+        # r_diag's gradient: each rank's part, from its own requests
+        g_r = tuple(Partial() if p.is_shard(0) and mesh.size(i) > 1
+                    else Replicate() for i, p in enumerate(pz))
+        return local_map(lambda z, r: slstm_scan(z, r, n_heads),
+                         out_placements=(pb, pb, pb, pb),
+                         in_placements=(pz, (Replicate(),) * mesh.ndim),
+                         in_grad_placements=(pz, g_r), device_mesh=mesh,
+                         redistribute_inputs=True)(zifo, r_diag)
     B, _, _, d_in = zifo.shape
     state = (_slstm_zero_state(B, d_in, zifo.device) if init_state is None
              else init_state)
@@ -335,16 +452,37 @@ class XLSTMBlock(nn.Module):
         state, updated in place."""
         B, S, _ = x.shape
         d_in = self.d_in
+        ctx = ctx or ModelContext()
+        rules = ctx.rules or {}
+        ring = rules.get("_parallelism") == "ring" and state is None
         h = L.rmsnorm(x, self.norm, ctx=ctx)
-        xin, z = (h @ self.up_proj.to(h.dtype)).chunk(2, dim=-1)
+        vtp = bool(rules.get("xlstm_hd")) and not self.is_slstm
+        if vtp:
+            # merged column-parallel projections: qkv and the gates read
+            # up_proj's x half linearly, so (up_x @ qkv) and (up_x @
+            # gates) fold into single D -> out weights (products of the
+            # f32 weights, cast to the activation dtype, as the reference)
+            up_x, up_z = self.up_proj[:, :d_in], self.up_proj[:, d_in:]
+            w_qkv = (up_x.float() @ self.qkv.float()).to(h.dtype)
+            w_gates = (up_x.float() @ self.gates.float()).to(h.dtype)
+            z = h @ up_z.to(h.dtype)
+            xin = h
+        else:
+            xin, z = (h @ self.up_proj.to(h.dtype)).chunk(2, dim=-1)
+            w_qkv, w_gates = self.qkv.to(xin.dtype), self.gates.to(xin.dtype)
         if self.is_slstm:
             # the qkv projection (3 d_in) and o_proj (d_in) give the four
             # gates' pre-activations
-            zifo = torch.cat([xin @ self.qkv.to(xin.dtype),
-                              xin @ self.o_proj.to(xin.dtype)],
+            zifo = torch.cat([xin @ w_qkv, xin @ self.o_proj.to(xin.dtype)],
                              dim=-1).reshape(B, S, 4, d_in)
             if state is None:
+                if ring:
+                    # the h_{t-1} recurrence does not compose as an affine
+                    # map: gather the (scalar-memory) scan's whole sequence
+                    zifo = ctx.shard(zifo, "batch", "attn_seq", None, None)
                 hseq, _ = slstm_scan(zifo, self.r_diag, self.n_heads)
+                if rules.get("_parallelism") == "ring":
+                    hseq = ctx.shard(hseq, "batch", "seq", None)
             else:
                 h1, _ = slstm_decode_step(zifo[:, 0], self.r_diag, state)
                 hseq = h1[:, None]
@@ -352,11 +490,20 @@ class XLSTMBlock(nn.Module):
         else:
             nh = self.n_heads
             hd = d_in // nh
-            q, k, v = (xin @ self.qkv.to(xin.dtype)).reshape(
-                B, S, 3, nh, hd).unbind(2)
-            gates = (xin @ self.gates.to(xin.dtype)).float() + self.gate_bias
+            q, k, v = (xin @ w_qkv).reshape(B, S, 3, nh, hd).unbind(2)
+            if rules.get("xlstm_hd"):
+                # head-dim TP: q, k, v sharded on hd over ``model``
+                q = ctx.shard(q, "batch", "seq", "ssm_heads", "xlstm_hd")
+                k = ctx.shard(k, "batch", "seq", "ssm_heads", "xlstm_hd")
+                v = ctx.shard(v, "batch", "seq", "ssm_heads", "xlstm_hd")
+            gates = (xin @ w_gates).float() + self.gate_bias
             ig, fg = gates.chunk(2, dim=-1)
-            if state is None:
+            if ring and ctx.mesh is not None:
+                n_model = ctx.mesh["model"].size()
+                hseq = mlstm_seq_parallel(
+                    q, k, v, ig, fg, mesh=ctx.mesh, batch_axes=rules["batch"],
+                    chunk=min(MLSTM_CHUNK, max(S // n_model, 1)))
+            elif state is None:
                 hseq, _ = mlstm_chunked(q, k, v, ig, fg,
                                         chunk=min(MLSTM_CHUNK, S))
             else:
@@ -449,13 +596,15 @@ class XLSTMLM(nn.Module):
         ctx = ctx or ModelContext()
         if isinstance(tokens, Mapping):
             tokens = tokens["tokens"]
-        x = L.embed(tokens, self.embed.to(ACT_DTYPE))
-        for blk in self.blocks:
-            x = checkpointed(self.cfg, blk, x, ctx)
-        if last_only:
-            x = x[:, -1:]
-        x = L.rmsnorm(x, self.final_norm, ctx=ctx)
-        return L.unembed(x, self.lm_head)
+        with mesh_scope(ctx):
+            x = L.embed(tokens, self.embed.to(ACT_DTYPE), ctx)
+            for blk in self.blocks:
+                x = checkpointed(self.cfg, blk, x, ctx)
+            if last_only:
+                x = x[:, -1:]
+            x = L.rmsnorm(x, self.final_norm, ctx=ctx)
+            return ctx.shard(L.unembed(x, self.lm_head), "batch", "seq",
+                             "vocab")
 
     def prefill(self, tokens: "torch.Tensor | Mapping",
                 ctx: Optional[ModelContext] = None) -> torch.Tensor:
@@ -477,11 +626,12 @@ class XLSTMLM(nn.Module):
         cache); the cache is updated in place (the reference returns a new
         one)."""
         ctx = ctx or ModelContext()
-        x = L.embed(tokens[:, None], self.embed.to(ACT_DTYPE))
-        for blk, state in zip(self.blocks, cache):
-            x = blk(x, ctx, state)
-        x = L.rmsnorm(x[:, 0], self.final_norm, ctx=ctx)
-        return L.unembed(x, self.lm_head), cache
+        with mesh_scope(ctx):
+            x = L.embed(tokens[:, None], self.embed.to(ACT_DTYPE))
+            for blk, state in zip(self.blocks, cache):
+                x = blk(x, ctx, state)
+            x = L.rmsnorm(x[:, 0], self.final_norm, ctx=ctx)
+            return L.unembed(x, self.lm_head), cache
 
 
 @torch.no_grad()

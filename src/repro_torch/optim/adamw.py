@@ -14,6 +14,12 @@ stacks every per-layer parameter on a leading layer axis, so it decays
 the per-layer norms and SSM vectors too; the port keeps each layer's
 tensors apart.  So the caller names the tensors that decay: a model
 passes its own set (``model.decayed()``) as ``decayed``.
+
+On a device mesh the params, grads and moments are DTensors (the moments
+follow their params' placements): the global norm's sum of squares
+reduces over every shard (a DTensor reduction), each grad is reduced to
+its param's placements, and the update, element by element, runs on each
+rank's shards.
 """
 
 from __future__ import annotations
@@ -23,9 +29,12 @@ from typing import Callable, Mapping, Union
 
 import torch
 
+from repro_torch.dtensor import is_dtensor, local, replicated_scope, whole
+
 
 def _global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every grad's squares, in float32."""
+    """sqrt of the sum of every grad's squares, in float32 (over every
+    shard of a DTensor grad)."""
     return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
 
 
@@ -77,19 +86,26 @@ class AdamW:
         """Returns (params, state, {"grad_norm", "lr"}); ``params`` and the
         state's moments are updated in place, its step replaced.  Each
         grad is clipped as :func:`clip_by_global_norm` clips it, one
-        tensor at a time (no second copy of the grads)."""
-        gnorm = _global_norm(grads)
+        tensor at a time (no second copy of the grads).  On DTensors each
+        grad is first reduced to its param's placements, and the update
+        runs on each rank's shards."""
+        with replicated_scope():
+            gnorm = _global_norm(grads)
+        gnorm = whole(gnorm)
         scale = (_clip_scale(gnorm, self.grad_clip_norm)
                  if self.grad_clip_norm > 0 else None)
-        step = state["step"] + 1
+        step = whole(state["step"]) + 1
         lr = self.lr_at(step)
         b1, b2 = self.b1, self.b2
         bc1 = 1.0 - b1 ** step.float()
         bc2 = 1.0 - b2 ** step.float()
         for name, p in params.items():
             g = grads[name]
+            if is_dtensor(p):
+                g = g.redistribute(p.device_mesh, p.placements).to_local()
             g = (g if scale is None else _scaled(g, scale)).float()
-            m, v = state["m"][name], state["v"][name]
+            m, v, p = (local(t) for t in (state["m"][name],
+                                          state["v"][name], p))
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g.square())
             delta = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)

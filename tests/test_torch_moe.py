@@ -267,9 +267,18 @@ def test_expert_ffn_matches_reference():
 
 
 def test_model_context_moe_impl():
+    """``"ep"`` is accepted, as in the reference, and raises where
+    ``moe_ep`` runs without a mesh (the reference asserts there)."""
     assert ModelContext().moe_impl == JaxCtx().moe_impl == "auto"
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ModelContext(moe_impl="ep")
+    assert ModelContext(moe_impl="ep").moe_impl == JaxCtx(
+        moe_impl="ep").moe_impl == "ep"
+    rng = np.random.default_rng(3)
+    p = {k: torch.from_numpy(v) for k, v in _moe_params(rng, 16, 4, 12,
+                                                       0).items()}
+    x = torch.from_numpy(rng.standard_normal((1, 3, 16)).astype(np.float32))
+    with pytest.raises(ValueError, match="mesh"):
+        moe.moe_block(x, p, k=2, n_experts=4, n_shared=0,
+                      capacity_factor=1.0, ctx=ModelContext(moe_impl="ep"))
     with pytest.raises(ValueError, match="moe_impl"):
         ModelContext(moe_impl="sparse")
 
