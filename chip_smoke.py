@@ -238,7 +238,20 @@ tensor-core kernel):
   decode on the whole cache) held likewise and timed beside the step off
   the mesh; and, after granite-8b's train run, one train step of that
   run's model, state and batch in the ZeRO layout, its loss against the
-  same step's off the mesh (``mesh_moe``, ``mesh_train``).
+  same step's off the mesh (``mesh_moe``, ``mesh_train``);
+* the dryrun path — the dry run (``repro_torch.launch.dryrun``), which
+  runs a cell's step on the meta device over a fake world of 256 or 512
+  ranks and counts rank 0's local ops: (a) its CLI in child processes
+  (the fake world cannot share a process with an NCCL one), one a group
+  of ``DRYRUN_CELLS``, all started together, each record's roofline,
+  memory and timings printed on a ``dryrun cell:`` line, any failed cell
+  failing the smoke; (b) on the card, granite-8b's serving prefill (4 x
+  4096 under ``attention_impl="auto"``, the plain attention, so that the
+  count sees every product) counted by the dry run's ``CostCounter`` on
+  CUDA tensors, its FLOPs equal to the same count on the meta device,
+  the H100 roofline's bound printed beside the measured wall of the same
+  step, which may not lie below it; no model kernel or pump launched
+  (``dryrun_cli``, ``dryrun_count``).
 
 The line before the last holds the kernels' numbers as JSON, and the
 last line the device.  Any failure exits nonzero; without CUDA it exits
@@ -252,6 +265,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -608,6 +622,28 @@ MESH_REPEATS = 2
 #: 700 W); the first MoE layer under EP at a capacity that drops nothing
 #: against ``moe_dense`` (of max |y|)
 MESH_TRAIN_RTOL, MESH_LAYER_TOL = 1e-5, 2e-2
+#: the dryrun path's CLI runs: (archs, shapes, mesh, ``--set``), one
+#: child process each, all started together.  The four cells that raised
+#: before the uneven-shard repairs (granite-8b train_4k and decode_32k,
+#: qwen3-moe-30b-a3b decode_32k, xlstm-1.3b prefill_32k), a multi-pod
+#: cell, and every kind; granite's train step cut to 4 of 36 layers and
+#: xLSTM's prefill to 7 of 48 blocks (its first sLSTM block is the 8th,
+#: whose position loop alone takes minutes on meta DTensors), to keep the
+#: path's CPU time inside its budget
+DRYRUN_CELLS = (
+    ("granite-8b", "decode_32k", "single", ""),
+    ("granite-8b", "prefill_32k", "single", ""),
+    ("qwen3-moe-30b-a3b", "decode_32k", "single", ""),
+    ("granite-8b", "decode_32k", "multi", ""),
+    ("granite-8b", "train_4k", "single", "n_layers=4"),
+    ("xlstm-1.3b", "prefill_32k", "single", "n_layers=7"),
+)
+#: seconds a dry-run child may take
+DRYRUN_TIMEOUT = 90
+#: the served model whose prefill the dry run's count is checked on, and
+#: its timed runs (three runs read 2.5789–2.5799 s on an H100)
+DRYRUN_SERVE = "granite-8b"
+DRYRUN_REPEATS = 2
 PREFILL = {"granite-8b": (PREFILL_BATCH, PREFILL_LEN),
            "zamba2-7b": (PREFILL_BATCH, PREFILL_LEN),
            "xlstm-1.3b": XLSTM_SERVE["prefill"],
@@ -4320,6 +4356,153 @@ def mesh_train(model, snap: dict, ref: dict, batch, steps: int, M: int
     return row
 
 
+def dryrun_cli(out_dir: Path) -> list:
+    """The dryrun path (a): ``python -m repro_torch.launch.dryrun`` in one
+    child process a group of ``DRYRUN_CELLS``, all started together, each
+    writing its records to ``out_dir``; each cell's roofline, memory and
+    timings printed on a ``dryrun cell:`` line.  Raises on a child that
+    fails or times out and on any failed cell.  Returns the records."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONPYCACHEPREFIX=str(_warm_bytecode(out_dir / "pycache")))
+    procs = []
+    for i, (arch, shapes, mesh, sets) in enumerate(DRYRUN_CELLS):
+        out = out_dir / f"dryrun_{i}.json"
+        out.unlink(missing_ok=True)
+        log = open(out_dir / f"dryrun_{i}.log", "w")
+        procs.append((out, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shapes, "--mesh", mesh, "--set", sets,
+             "--out", str(out)], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT)))
+    records = []
+    for out, log, proc in procs:
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        text = Path(log.name).read_text()
+        if rc != 0 or "[FAIL]" in text or not out.exists():
+            raise AssertionError(f"dry run {proc.args[3:]}: exit {rc}\n"
+                                 f"{text[-3000:]}")
+        for key, rec in json.load(open(out)).items():
+            if not rec.get("ok"):
+                raise AssertionError(f"dry run {key}: {rec.get('error')}")
+            records.append(rec)
+            print("dryrun cell:", json.dumps({
+                "cell": key, "devices": rec["devices"],
+                "overrides": rec["overrides"], "roofline": rec["roofline"],
+                "memory": rec["memory"], "timings": rec["timings"],
+                "local_ops": rec["local_ops"],
+                "collective_bytes": {k: v["bytes"] for k, v in
+                                     rec["collectives"].items()},
+                "probe_fit": rec.get("probe", {}).get("fit")}))
+    return records
+
+
+def _warm_bytecode(prefix: Path) -> Path:
+    """Compile the sources of every module this process has loaded into
+    ``prefix``, all cores at once, and return it: the dry run's children
+    read their bytecode there (``PYTHONPYCACHEPREFIX``) where the
+    installed packages hold none, instead of each compiling the same
+    modules again (about 13 s a child on an H100 host)."""
+    prefix.mkdir(parents=True, exist_ok=True)
+    files = sorted({f for m in list(sys.modules.values())
+                    if (f := getattr(m, "__file__", None))
+                    and f.endswith(".py")})
+    n = os.cpu_count() or 1
+    procs = []
+    for i in range(n):        # compileall compiles listed files serially
+        part = prefix / f"sources_{i}.txt"
+        part.write_text("\n".join(files[i::n]))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "compileall", "-q", "-i", str(part)],
+            env=dict(os.environ, PYTHONPYCACHEPREFIX=str(prefix)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+    for p in procs:
+        p.wait(timeout=DRYRUN_TIMEOUT)
+    return prefix
+
+
+def dryrun_count(model, tokens) -> tuple:
+    """The dryrun path (b), on ``DRYRUN_SERVE``'s serving model and
+    prefill batch: the prefill step (``last_only``) under
+    ``attention_impl="auto"`` once under the dry run's ``CostCounter`` on
+    the card (also the warm-up), then timed ``DRYRUN_REPEATS`` times; and
+    once on a model of the same config on the meta device.  Holds the two
+    FLOP counts equal and the measured wall at or above the H100
+    roofline's bound of the count; no kernel launched.  Returns the row
+    and the launches."""
+    import torch
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.sharding import ModelContext
+    from repro_torch.models.zoo import build_model
+    ctx = ModelContext(attention_impl="auto")
+    cfg = model.cfg
+    B, S = tokens.shape
+    _reset_launches()
+    step = build_prefill_step(model, ctx, last_only=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    card = dr.CostCounter()
+    card.hold([dict(model.named_parameters()), tokens])
+    with card:
+        logits = step(tokens)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated()
+    walls = []
+    for _ in range(DRYRUN_REPEATS):
+        t0 = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    meta_model = build_model(cfg, "meta")
+    meta = dr.CostCounter()
+    meta_tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
+                              device="meta")
+    meta.hold([dict(meta_model.named_parameters()), meta_tokens])
+    with meta:
+        build_prefill_step(meta_model, ctx, last_only=True)(meta_tokens)
+    meta_s = time.perf_counter() - t0
+    counts = _launches()
+    if any(counts.values()):
+        raise AssertionError(f"dryrun: kernel launches {counts}")
+    if card.flops != meta.flops:
+        raise AssertionError(f"dryrun: {card.flops} FLOPs counted on the "
+                             f"card, {meta.flops} on meta")
+    if logits.shape != (B, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("dryrun: prefill logits not finite")
+    terms = {"compute_s": card.flops / dr.PEAK_FLOPS,
+             "memory_s": card.bytes_accessed / dr.HBM_BW,
+             "collective_s": card.costs()["collective_s"]}
+    bound = max(terms.values())
+    wall = statistics.median(walls)
+    if wall < bound:
+        raise AssertionError(f"dryrun: prefill wall {wall} s below the "
+                             f"roofline's bound {bound} s")
+    mf = dr.model_flops(cfg, "prefill", B, S)
+    row = dict(arch=cfg.name, batch=B, prompt=S, impl="auto",
+               wall_s=wall, wall_s_runs=walls, bound_step_s=bound,
+               dominant=max(terms, key=terms.get), **terms,
+               wall_over_bound=wall / bound, flops=card.flops,
+               flops_meta=meta.flops, bytes_accessed=card.bytes_accessed,
+               bytes_accessed_meta=meta.bytes_accessed,
+               local_ops=card.local_ops, local_ops_meta=meta.local_ops,
+               model_flops=mf, useful_compute_ratio=mf / card.flops,
+               peak_bytes_counted=card.peak_bytes,
+               peak_bytes_meta=meta.peak_bytes,
+               peak_bytes_allocator=card_peak,
+               allocated_before=base, meta_count_s=meta_s)
+    return row, counts
+
+
 def serve(arch: str, dev, done, walk=None, walk_dec=None) -> tuple:
     """Every serving phase of ``arch``: build, prefill (checked),
     ``walk`` (the per-layer checks) where given, prefill profile (with an
@@ -4353,6 +4536,10 @@ def serve(arch: str, dev, done, walk=None, walk_dec=None) -> tuple:
         print("serve decode layers:", json.dumps(walk_dec(model)))
         done(f"{arch} decode by layer")
     print(f"{arch} peak memory: {torch.cuda.max_memory_allocated() / 1e9} GB")
+    if arch == DRYRUN_SERVE:
+        row, by_path["dryrun"] = dryrun_count(model, tokens)
+        print("dryrun card:", json.dumps(row))
+        done(f"{arch} dryrun count")
     if arch == MESH_SERVE:
         with _mesh_world():
             row, by_path["mesh"] = mesh_moe(model, tokens,
@@ -4466,6 +4653,8 @@ def main() -> int:
     by_path["train"], train_rows = drive_train_phase(dev, done)
     by_path["stream"] = drive_stream_phase(
         dev, done, train_rows["granite-8b"]["step_wall_s"])
+    dryrun_cli(ROOT / "build" / "dryrun")
+    done("dryrun cells")
     mesh = by_path["mesh"]
     if not all(mesh[k] for k in ("flash_attention", "rmsnorm",
                                  "flash_decode")):

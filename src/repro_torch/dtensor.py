@@ -13,14 +13,14 @@ import contextlib
 from typing import Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import (
     compute_local_shape_and_global_offset)
 from torch.distributed.tensor.experimental import implicit_replication
 
 __all__ = ["DTensor", "is_dtensor", "distribute", "on_mesh", "whole",
            "local", "spread_over", "local_span", "keep_shards",
-           "replicated_scope"]
+           "splittable", "cumsum", "matmul", "replicated_scope"]
 
 
 def is_dtensor(x) -> bool:
@@ -90,6 +90,88 @@ def keep_shards(t, dims: dict) -> tuple:
         else:
             out.append(Replicate())
     return tuple(out)
+
+
+def splittable(t: torch.Tensor, dim: int, lead: int) -> torch.Tensor:
+    """``t`` placed so that its dim ``dim`` can be split into (``lead``,
+    rest) by a reshape: DTensor puts a split dim's shards on ``lead``, and
+    refuses the split unless their rank count divides it.  Each mesh dim
+    whose shard of ``dim`` would not divide (counted in mesh order, as
+    DTensor nests them) becomes ``Replicate()``, an all-gather; ``t`` is
+    returned as it is when the shards divide (GSPMD pads instead), or
+    when ``lead`` is 1 (DTensor then shards the rest)."""
+    if not isinstance(t, DTensor) or lead == 1:
+        return t
+    dim %= t.ndim
+    mesh = t.device_mesh
+    out, n = list(t.placements), 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim) and mesh.size(i) > 1:
+            if lead % (n * mesh.size(i)):
+                out[i] = Replicate()
+            else:
+                n *= mesh.size(i)
+    if out == list(t.placements):
+        return t
+    return t.redistribute(mesh, tuple(out))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of activations x (..., K) and a weight w (K, N).  On
+    DTensors, per rank under ``local_map`` with the placements GSPMD gives
+    the reference's dot, where they follow from the operands' on every
+    mesh dim: x's shards of its leading dims kept, w's shard of N on the
+    last dim, a partial sum where either shards K (the other operand is
+    then split along K where it is whole, a local slice); the gradients'
+    placements follow (x's partial where w splits N, w's partial where x
+    splits the rows).  Otherwise (a partial operand, shards that clash)
+    DTensor's own product, whose strategy search is slow on a 3-D mesh
+    and may pick another layout."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)) or w.ndim != 2:
+        return x @ w
+    mesh, last = w.device_mesh, x.ndim - 1
+    R = Replicate()
+    # per mesh dim: (x's, w's, the output's, x's grad's, w's grad's)
+    dims = []
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        if mesh.size(i) == 1:
+            px = pw = R
+        if px.is_shard() and px.dim < last and pw.is_replicate():
+            dims.append((px, pw, px, px, Partial()))
+        elif px.is_replicate() and pw.is_shard(1):
+            dims.append((px, pw, Shard(last), Partial(), pw))
+        elif px.is_shard(last) and pw.is_shard(0):
+            dims.append((px, pw, Partial(), px, pw))
+        elif px.is_shard(last) and pw.is_replicate():
+            # w split along K where x is: a local slice of it
+            dims.append((px, Shard(0), Partial(), px, Shard(0)))
+        elif px.is_replicate() and pw.is_shard(0):
+            dims.append((Shard(last), pw, Partial(), Shard(last), pw))
+        elif px.is_replicate() and pw.is_replicate():
+            dims.append((R, R, R, R, R))
+        else:
+            return x @ w
+    from torch.distributed.tensor.experimental import local_map
+    px, pw, out, gx, gw = (tuple(col) for col in zip(*dims))
+    return local_map(torch.matmul, out_placements=list(out),
+                     in_placements=(px, pw), in_grad_placements=(gx, gw),
+                     device_mesh=mesh, redistribute_inputs=True)(x, w)
+
+
+def cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t.cumsum(dim)``; on a DTensor per shard under ``local_map`` (the
+    dim gathered first where it is sharded), since some DTensor versions
+    have no rule for ``flip``, which its backward runs."""
+    if not isinstance(t, DTensor):
+        return t.cumsum(dim)
+    from torch.distributed.tensor.experimental import local_map
+    dim %= t.ndim
+    p = tuple(Replicate() if q.is_shard(dim) or q.is_partial() else q
+              for q in t.placements)
+    return local_map(lambda x: x.cumsum(dim), out_placements=list(p),
+                     in_placements=(p,), in_grad_placements=(p,),
+                     device_mesh=t.device_mesh,
+                     redistribute_inputs=True)(t)
 
 
 def replicated_scope():

@@ -129,23 +129,9 @@ def ssd_state_scan(states: torch.Tensor, totals: torch.Tensor,
                    C: torch.Tensor, cum: torch.Tensor):
     """states: (B,nc,nh,hd,N); totals: (B,nc,nh); C: (B,nc,Q,N); cum:
     (B,nc,Q,nh).  Returns (y_inter (B,nc,Q,nh,hd), final_state
-    (B,nh,hd,N))."""
-    if not is_dtensor(states):
-        return _scan(states, totals, C, cum)
-    mesh = states.device_mesh
-    ps = keep_shards(states, {0: 0, 2: 2})
-
-    def follow(heads_dim):
-        """Placements of a tensor whose batch is dim 0 and SSM heads dim
-        ``heads_dim`` (None: not split by head)."""
-        return tuple(
-            Shard(0) if p.is_shard(0) else
-            Shard(heads_dim) if p.is_shard(2) and heads_dim is not None
-            else Replicate() for p in ps)
-    outs = (list(follow(3)), list(follow(1)))
-    return _local_map(_scan, outs, (ps, follow(2), follow(None), follow(3)),
-                      mesh)(states, on_mesh(totals, mesh),
-                            on_mesh(C, mesh), on_mesh(cum, mesh))
+    (B,nh,hd,N)).  Plain tensors: on a mesh the whole chunked SSD runs per
+    shard (``mamba2._ssd_on_shards``)."""
+    return _scan(states, totals, C, cum)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6

@@ -20,11 +20,14 @@ splits each rank's own rows of a ``Shard(0)`` batch into M parts, so a
 microbatch gathers the i-th part of every rank's rows rather than a
 global slice of B/M rows: another grouping of the rows, the same mean
 gradient (M equal-sized microbatch means), and no communication.  On
-one rank the two groupings are the same.
+one rank the two groupings are the same.  Where a rank holds fewer rows
+than M can share evenly (B/M rows over more batch ranks than B/M, which
+GSPMD pads), the step makes fewer, larger microbatches (``_parts``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -79,11 +82,12 @@ def build_train_step(model: LM, optimizer: AdamW,
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        if M > 1:
+        n = _parts(batch, M)
+        if n > 1:
             loss = torch.zeros((), dtype=torch.float32,
                                device=model.device)
-            for i in range(M):
-                mb_loss = loss_fn({k: _microbatch(v, M, i)
+            for i in range(n):
+                mb_loss = loss_fn({k: _microbatch(v, n, i)
                                    for k, v in batch.items()})
                 with mesh_scope(ctx):
                     mb_loss.backward()
@@ -91,8 +95,8 @@ def build_train_step(model: LM, optimizer: AdamW,
             with torch.no_grad(), mesh_scope(ctx):
                 for p in params.values():
                     if p.grad is not None:
-                        p.grad.div_(M)
-                loss = loss / M
+                        p.grad.div_(n)
+                loss = loss / n
         else:
             loss = loss_fn(batch)
             with mesh_scope(ctx):
@@ -109,6 +113,18 @@ def build_train_step(model: LM, optimizer: AdamW,
         return {k: whole(v) for k, v in {"loss": loss, **metrics}.items()}
 
     return train_step
+
+
+def _parts(batch: dict, M: int) -> int:
+    """The microbatches a step makes of ``batch``: ``M``, or on a DTensor
+    batch whose ranks each hold fewer rows than ``M`` parts can share
+    evenly, the largest count that divides both (each rank's part is
+    then more than B/M rows over all of them: the same rows a rank holds
+    in each of GSPMD's padded microbatches, and fewer passes)."""
+    v = next(iter(batch.values()))
+    if not is_dtensor(v):
+        return M
+    return math.gcd(v.to_local().shape[0], M)
 
 
 def _microbatch(v: torch.Tensor, M: int, i: int) -> torch.Tensor:

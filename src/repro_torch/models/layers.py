@@ -21,8 +21,9 @@ decode kernel.
 Under a mesh (``ModelContext.distributed``) the tensors are DTensors and
 the layers the same code: the kernels run per shard
 (:mod:`repro_torch.kernels.ops`), and decode against a cache sharded
-along its sequence over more than one rank takes the grouped einsum
-under every ``attention_impl``, as the reference's does.
+along its sequence over more than one rank takes the grouped einsum on
+each rank's slice, combined by log-sum-exp, under every
+``attention_impl``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.dtensor import (
-    is_dtensor, local_span, on_mesh, spread_over, whole)
+    is_dtensor, local_span, matmul, on_mesh, spread_over, whole)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attention import flash_decode_ref
 from repro_torch.kernels.flash_attention import (
@@ -164,15 +165,74 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, logit_cap=0.0,
     q: (B, H, hd); k_cache/v_cache: (B, T, KV, hd); pos: (B,) index of the
     current token (already written into the cache).  Grouped einsum, no
     KV expansion (the flash decode kernel under ``pallas``, unless the
-    cache's sequence is sharded over more than one rank: the einsum then
-    runs on DTensors, as the reference's does under every impl); keys
-    past ``pos`` (and outside the window) are masked.
+    cache's sequence is sharded over more than one rank: then
+    :func:`_decode_on_shards` under every impl); keys past ``pos`` (and
+    outside the window) are masked.
     """
+    kw = dict(window=window, logit_cap=logit_cap, scale=scale)
+    if spread_over(k_cache, 1):
+        return _decode_on_shards(q, k_cache, v_cache, pos, **kw)
     fn = (kops.flash_decode
           if ctx is not None and ctx.attention_impl == "pallas"
-          and not spread_over(k_cache, 1) else flash_decode_ref)
-    return fn(q, k_cache, v_cache, pos, window=window, logit_cap=logit_cap,
-              scale=scale)
+          else flash_decode_ref)
+    return fn(q, k_cache, v_cache, pos, **kw)
+
+
+def _partial_decode(q, k, v, pos, t0: int, *, window, logit_cap, scale):
+    """The grouped einsum of :func:`flash_decode_ref` over the cache's
+    positions t0.. t0 + T - 1 only: the max score m, the sum l of
+    exp(s - m) and the unnormalized output o (f32), each (B, KV, G[, hd])."""
+    B, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    scale = (hd ** -0.5) if scale is None else scale
+    qg = q.reshape(B, KV, H // KV, hd).float() * scale
+    s = torch.einsum("bkgh,btkh->bkgt", qg, k.float())
+    if logit_cap > 0:
+        s = softcap(s, logit_cap)
+    t_idx = torch.arange(t0, t0 + T, device=q.device)
+    ok = t_idx[None, :] <= pos[:, None]
+    if window > 0:
+        ok &= (pos[:, None] - t_idx[None, :]) < window
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bkgt,btkh->bkgh", p, v.float())
+
+
+def _decode_on_shards(q, k_cache, v_cache, pos, **kw) -> torch.Tensor:
+    """Decode attention against a cache sharded along its sequence (a
+    DTensor, ``kv_seq`` over more than one rank), per rank under
+    ``local_map``: each rank attends over its slice of the positions
+    (:func:`_partial_decode`) with every query head of its requests, and
+    the slices combine by their log-sum-exp, one all-reduce of the maxima
+    and one of the rescaled sums and outputs over the ranks that split the
+    sequence.  Under every ``attention_impl``: the kernel normalizes
+    within its slice."""
+    import torch.distributed as dist
+    mesh = k_cache.device_mesh
+    pc = tuple(p if p.is_shard() and p.dim in (0, 1) else Replicate()
+               for p in k_cache.placements)
+    pb = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pc)
+    k_cache = k_cache.redistribute(mesh, pc)
+    v_cache = v_cache.redistribute(mesh, pc)
+    t0, _ = local_span(k_cache, 1)
+    groups = [mesh.get_group(i) for i in spread_over(k_cache, 1)]
+
+    def local(ql, kl, vl, pl):
+        m, l, o = _partial_decode(ql, kl, vl, pl, t0, **kw)
+        top = m.clone()
+        for g in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+        f = torch.exp(m - top)
+        lo = torch.cat([o * f[..., None], (l * f)[..., None]], dim=-1)
+        for g in groups:
+            dist.all_reduce(lo, group=g)
+        out = lo[..., :-1] / lo[..., -1:]
+        return out.reshape(ql.shape).to(ql.dtype)
+    return local_map(local, out_placements=list(pb),
+                     in_placements=(pb, pc, pc, pb), device_mesh=mesh,
+                     redistribute_inputs=True)(
+        on_mesh(q, mesh), k_cache, v_cache, on_mesh(pos, mesh))
 
 
 # --------------------------------------------------------------------------
@@ -185,12 +245,48 @@ def swiglu(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     """wi: (D, 2F) fused gate+up; wo: (F, D).  The output product runs
     through :func:`~repro_torch.models.remat.mlp_output`, which tells the
     dots remat policy whether backward reads it."""
-    h = x @ wi.to(x.dtype)
-    gate, up = h.chunk(2, dim=-1)
+    h = matmul(x, wi.to(x.dtype))
+    gate, up = _halves(h)
     h = F.silu(gate) * up
     if ctx is not None and x.ndim == 3:
         h = ctx.shard(h, "batch", "attn_seq", "d_ff")
     return mlp_output(h, wo.to(x.dtype))
+
+
+def _halves(h: torch.Tensor) -> tuple:
+    """``h.chunk(2, dim=-1)``: the gate and the up projection.  Where the
+    fused columns are sharded over one mesh dim of an even n ranks (``d_ff``
+    over ``model``), ranks 0..n/2-1 hold the gate's columns and the rest
+    the up projection's; one ``all_to_all`` gives each rank its column
+    block of both halves (half its shard moves, GSPMD's
+    collective-permute), where DTensor would gather ``h`` whole."""
+    dims = spread_over(h, -1)
+    if len(dims) != 1 or any(p.is_partial() for p in h.placements):
+        return h.chunk(2, dim=-1)
+    import torch.distributed._functional_collectives as funcol
+    mesh, i = h.device_mesh, dims[0]
+    n = mesh.size(i)
+    if n % 2 or h.shape[-1] % (2 * n):
+        return h.chunk(2, dim=-1)
+    r, group, half = mesh.get_local_rank(i), mesh.get_group(i), n // 2
+
+    def local(hl):
+        lead, w = hl.shape[:-1], hl.shape[-1] // 2
+        rows = hl.numel() // (2 * w)
+        # rank r's two column blocks go to ranks 2 (r mod n/2) and the
+        # next; its gate block comes from rank r // 2, its up block from
+        # rank n/2 + r // 2
+        send, recv = [0] * n, [0] * n
+        send[2 * (r % half)] = send[2 * (r % half) + 1] = rows
+        recv[r // 2] = recv[half + r // 2] = rows
+        blocks = hl.reshape(rows, 2, w).transpose(0, 1).reshape(2 * rows, w)
+        got = funcol.all_to_all_single_autograd(blocks.contiguous(), recv,
+                                                send, group)
+        gate, up = got.reshape(2, *lead, w).unbind(0)
+        return gate, up
+    p = list(h.placements)
+    return local_map(local, out_placements=(p, p), in_placements=(p,),
+                     in_grad_placements=(p,), device_mesh=mesh)(h)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor,
@@ -242,7 +338,7 @@ def unembed(x: torch.Tensor, w: torch.Tensor, final_cap: float = 0.0
             ) -> torch.Tensor:
     """x: (..., D) @ w: (D, V) -> logits, optional final softcap (gemma2)
     in float32."""
-    logits = x @ w.to(x.dtype)
+    logits = matmul(x, w.to(x.dtype))
     if final_cap > 0:
         logits = softcap(logits.float(), final_cap)
     return logits
@@ -251,16 +347,70 @@ def unembed(x: torch.Tensor, w: torch.Tensor, final_cap: float = 0.0
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE. logits (B,S,V), labels (B,S).  Vocab-sharded
-    logits (a DTensor) are gathered along the vocab first."""
+    logits (a DTensor) stay sharded (:func:`_nll_on_shards`)."""
     if is_dtensor(logits) and spread_over(logits, -1):
-        v = logits.ndim - 1
-        logits = logits.redistribute(logits.device_mesh, tuple(
-            Replicate() if p.is_shard(v) else p for p in logits.placements))
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+        nll = _nll_on_shards(logits, labels)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = lse - gold
     if mask is not None:
         total = torch.clamp(mask.sum(), min=1)
         return (nll * mask).sum() / total
     return nll.mean()
+
+
+class _VocabNLL(torch.autograd.Function):
+    """lse - gold of one rank's vocab shard (..., V_loc) of the logits,
+    the max, the sum of exponentials and the gold logit each all-reduced
+    over ``groups`` (the ranks that split the vocab), in float32.  The
+    gradient, softmax minus the one-hot, needs no communication."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0, groups):
+        import torch.distributed as dist
+        x = logits.float()
+        m = x.amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        se = torch.exp(x - m[..., None]).sum(dim=-1)
+        idx = labels.long() - v0
+        ok = (idx >= 0) & (idx < x.shape[-1])
+        idx = idx.clamp(0, x.shape[-1] - 1)
+        gold = torch.where(ok, torch.gather(x, -1, idx[..., None])[..., 0],
+                           torch.zeros((), device=x.device))
+        for g in groups:
+            dist.all_reduce(se, group=g)
+            dist.all_reduce(gold, group=g)
+        lse = m + torch.log(se)
+        ctx.save_for_backward(logits, lse, idx, ok)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, ok = ctx.saved_tensors
+        p = torch.exp(logits.float() - lse[..., None])
+        p.scatter_add_(-1, idx[..., None], -ok[..., None].to(p.dtype))
+        return (p * g[..., None]).to(logits.dtype), None, None, None
+
+
+def _nll_on_shards(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """lse - gold (B, S) of vocab-sharded logits (a DTensor), per rank
+    under ``local_map`` (:class:`_VocabNLL`): each rank reads its own
+    shard of the vocab, as GSPMD reduces the reference's, where gathering
+    the vocab would hold every rank's (B, S, V) in float32."""
+    mesh = logits.device_mesh
+    v = logits.ndim - 1
+    pl = tuple(Replicate() if p.is_partial() else p
+               for p in logits.placements)
+    plab = tuple(p if p.is_shard() and p.dim < v else Replicate()
+                 for p in pl)
+    logits = logits.redistribute(mesh, pl)
+    v0, _ = local_span(logits, v)
+    groups = [mesh.get_group(i) for i in spread_over(logits, v)]
+    return local_map(lambda x, y: _VocabNLL.apply(x, y, v0, groups),
+                     out_placements=list(plab), in_placements=(pl, plab),
+                     in_grad_placements=(pl, plab), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, on_mesh(labels, mesh))

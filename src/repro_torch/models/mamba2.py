@@ -28,8 +28,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dtensor import (
+    cumsum, is_dtensor, keep_shards, matmul, on_mesh)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssm_scan import ssd_state_scan_ref
 from repro_torch.models import layers as L
@@ -77,7 +81,7 @@ def ssd_chunk_terms(x, dt, A, B, C, chunk: int = CHUNK):
     Cc = C.reshape(Bb, nc, chunk, N)
 
     dA = dtc * A[None, None, None, :]                    # (Bb,nc,Q,nh) <= 0
-    cum = torch.cumsum(dA, dim=2)                        # within-chunk cumsum
+    cum = cumsum(dA, 2)                                  # within-chunk cumsum
     total = cum[:, :, -1]                                # (Bb,nc,nh)
 
     # ---- intra-chunk (dual / attention-like form) ----
@@ -118,7 +122,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = CHUNK,
 
     The inter-chunk recurrence is the SSD state scan kernel under
     ``pallas``, which starts from a zero state: ``init_state`` must then
-    be None (it always is in prefill)."""
+    be None (it always is in prefill).  On a DTensor ``x`` it runs per
+    shard (:func:`_ssd_on_shards`)."""
+    if is_dtensor(x):
+        return _ssd_on_shards(x, dt, A, B, C, chunk, init_state, ctx)
     Bb, S, nh, hd = x.shape
     y_intra, states, total, Cc, cum = ssd_chunk_terms(x, dt, A, B, C, chunk)
     if ctx is not None and ctx.attention_impl == "pallas":
@@ -131,6 +138,47 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = CHUNK,
                                             init_state)
     y = (y_intra + y_inter).reshape(Bb, S, nh, hd)
     return y, final
+
+
+def _ssd_on_shards(x, dt, A, B, C, chunk, init_state, ctx):
+    """:func:`ssd_chunked` of a DTensor ``x`` per rank under
+    ``local_map``: each rank scans its requests and its heads (the
+    sequence whole), as GSPMD keeps the reference's scan local.  The
+    gradients of ``A`` (per head) and of ``B``/``C`` (shared by the heads)
+    are each rank's part, summed over the ranks that split the requests
+    or the heads."""
+    mesh = x.device_mesh
+    px = keep_shards(x, {0: 0, 2: 2})
+    n = range(mesh.ndim)
+
+    def place(dims: dict, partial_on=()):
+        out = []
+        for i, p in zip(n, px):
+            if p.is_shard() and p.dim in dims:
+                out.append(Shard(dims[p.dim]))
+            elif p.is_shard() and p.dim in partial_on and mesh.size(i) > 1:
+                out.append(Partial())
+            else:
+                out.append(Replicate())
+        return tuple(out)
+    pdt, pA, pBC = place({0: 0, 2: 2}), place({2: 0}), place({0: 0})
+    pst = place({0: 0, 2: 1})
+    g_A, g_BC = place({2: 0}, (0,)), place({0: 0}, (2,))
+    args = [x, on_mesh(dt, mesh), on_mesh(A, mesh), on_mesh(B, mesh),
+            on_mesh(C, mesh)]
+    in_p, in_g = [px, pdt, pA, pBC, pBC], [px, pdt, g_A, g_BC, g_BC]
+    if init_state is not None:
+        args.append(on_mesh(init_state, mesh))
+        in_p.append(pst)
+        in_g.append(pst)
+
+    def local(*t):
+        return ssd_chunked(*t[:5], chunk=chunk,
+                           init_state=t[5] if len(t) > 5 else None, ctx=ctx)
+    return local_map(local, out_placements=(list(px), list(pst)),
+                     in_placements=tuple(in_p),
+                     in_grad_placements=tuple(in_g), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def ssd_decode_step(x, dt, A, B, C, state):
@@ -184,16 +232,44 @@ class Mamba2(nn.Module):
         Bb, S, _ = x.shape
         N, hd = self.cfg.ssm_state, self.cfg.ssm_head_dim
         h = L.rmsnorm(x, self.norm, ctx=ctx)
-        proj = h @ self.in_proj.to(h.dtype)
-        z, xs, Bm, Cm, dt = proj.split(
-            [self.d_in, self.d_in, N, N, self.nh], dim=-1)
-        conv_out, new_carry = _causal_conv(
-            torch.cat([xs, Bm, Cm], dim=-1), self.conv.to(h.dtype), carry)
-        conv_out = F.silu(conv_out)
-        xs, Bm, Cm = conv_out.split([self.d_in, N, N], dim=-1)
+        w, cw = self.in_proj.to(h.dtype), self.conv.to(h.dtype)
+        if carry is None and is_dtensor(h) and ctx is not None \
+                and ctx.distributed:
+            z, xs, Bm, Cm, dt = self._proj_by_heads(h, w, cw, ctx)
+            new_carry = None
+        else:
+            z, xs, Bm, Cm, dt = matmul(h, w).split(
+                [self.d_in, self.d_in, N, N, self.nh], dim=-1)
+            conv_out, new_carry = _causal_conv(
+                torch.cat([xs, Bm, Cm], dim=-1), cw, carry)
+            xs, Bm, Cm = F.silu(conv_out).split([self.d_in, N, N], dim=-1)
+        if ctx is not None:
+            # heads placed as dt_bias is (a local slice where dt is whole)
+            dt = ctx.shard(dt, "batch", "seq", "ssm_heads")
         dt = F.softplus(dt.float() + self.dt_bias[None, None, :])
         A = -torch.exp(self.A_log)
         return z, xs.reshape(Bb, S, self.nh, hd), dt, A, Bm, Cm, new_carry
+
+    def _proj_by_heads(self, h, w, cw, ctx: ModelContext) -> tuple:
+        """``ssd_inputs``' in_proj and conv on DTensors, from a zero conv
+        carry: the per-head column groups (z, xs, dt) each by its own
+        product with its slice of ``in_proj`` placed by ``ssm_heads`` (a
+        local slice of the replicated weight), so each rank computes its
+        heads' columns only, as GSPMD propagates the reference's head
+        sharding into its product; B and C (shared by the heads) whole.
+        xs and B, C pass the depthwise conv apart."""
+        d, N = self.d_in, self.cfg.ssm_state
+        mesh = ctx.mesh
+        heads = ctx.spec(None, "ssm_heads")
+        edges = (0, d, 2 * d, 2 * d + N, 2 * d + 2 * N, 2 * d + 2 * N + self.nh)
+        z, xs, Bm, Cm, dt = (
+            matmul(h, w[:, a:b].redistribute(mesh, heads) if i in (0, 1, 4)
+                   else w[:, a:b])
+            for i, (a, b) in enumerate(zip(edges, edges[1:])))
+        xs, _ = _causal_conv(xs, cw[:, :d].redistribute(mesh, heads))
+        bc, _ = _causal_conv(torch.cat([Bm, Cm], dim=-1), cw[:, d:])
+        Bm, Cm = F.silu(bc).split([N, N], dim=-1)
+        return z, F.silu(xs), Bm, Cm, dt
 
     def forward(self, x: torch.Tensor, ctx: ModelContext,
                 state: Optional[dict] = None) -> torch.Tensor:
@@ -219,7 +295,12 @@ class Mamba2(nn.Module):
         y = y + xh.float() * self.D[None, None, :, None]
         y = y.reshape(Bb, S, self.d_in).to(x.dtype)
         y = L.rmsnorm(y, self.out_norm, ctx=ctx) * F.silu(z)
-        return y @ self.out_proj.to(y.dtype)
+        out = matmul(y, self.out_proj.to(y.dtype))
+        if ctx is not None:
+            # placed before the residual add, as the transformer's blocks
+            # place theirs
+            out = ctx.shard(out, "batch", "seq", "d_model")
+        return out
 
 
 def init_mamba2_state(batch: int, cfg: ArchConfig, d_model: int,

@@ -37,10 +37,12 @@ import functools
 from typing import Callable
 
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dtensor import matmul
 
 __all__ = ["checkpointed", "dots_policy", "no_batch_dims", "output_unread",
            "mlp_output"]
@@ -90,10 +92,10 @@ def mlp_output(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``g @ w``, an MLP's output product: under :func:`output_unread`,
     one that :func:`dots_policy` leaves to recompute."""
     if not _OUTPUT_UNREAD.get():
-        return g @ w
+        return matmul(g, w)
     token = _SKIP.set(True)
     try:
-        return g @ w
+        return matmul(g, w)
     finally:
         _SKIP.reset(token)
 
@@ -108,8 +110,29 @@ def checkpointed(cfg: ArchConfig, fn: Callable, *args,
     take the default, as the reference's ignore the policy."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn(*args)
+    fn = _with_weights_of_now(fn)
     if policy != "dots":
         return checkpoint(fn, *args, use_reentrant=False)
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=functools.partial(
                           create_selective_checkpoint_contexts, dots_policy))
+
+
+def _with_weights_of_now(fn: Callable) -> Callable:
+    """``fn``, a module or a method of one, reading the module's
+    parameters as they are now when it runs again in backward: a forward
+    under ``torch.func.functional_call`` (the train step's weights taken
+    from the ZeRO masters to the layout it computes in) is recomputed
+    with the same weights after the call has put the masters back."""
+    module = fn if isinstance(fn, torch.nn.Module) else getattr(
+        fn, "__self__", None)
+    if not isinstance(module, torch.nn.Module):
+        return fn
+    now = dict(module.named_parameters())
+    if all(isinstance(p, torch.nn.Parameter) for p in now.values()):
+        return fn                       # the module's own: nothing to keep
+
+    def run(*args):
+        with _reparametrize_module(module, now):
+            return fn(*args)
+    return run

@@ -57,7 +57,8 @@ from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dtensor import is_dtensor, local_span, on_mesh, whole
+from repro_torch.dtensor import (
+    is_dtensor, local_span, matmul, on_mesh, whole)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_block
 from repro_torch.models.remat import checkpointed, output_unread
@@ -131,9 +132,9 @@ class Block(nn.Module):
         B, S, _ = x.shape
         cfg = self.cfg
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q = (x @ self.wq.to(x.dtype)).reshape(B, S, H, hd)
-        k = (x @ self.wk.to(x.dtype)).reshape(B, S, KV, hd)
-        v = (x @ self.wv.to(x.dtype)).reshape(B, S, KV, hd)
+        q = matmul(x, self.wq.to(x.dtype)).reshape(B, S, H, hd)
+        k = matmul(x, self.wk.to(x.dtype)).reshape(B, S, KV, hd)
+        v = matmul(x, self.wv.to(x.dtype)).reshape(B, S, KV, hd)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
         if ctx is not None:
@@ -164,9 +165,11 @@ class Block(nn.Module):
                               capacity_factor=cfg.capacity_factor, ctx=ctx)
             else:
                 m = L.swiglu(h, self.wi, self.wo_mlp, ctx)
+        # placed before the post-norm: its statistics need the sum
+        m = ctx.shard(m, "batch", "seq", "d_model")
         if cfg.post_norms:
             m = L.rmsnorm(m, self.post_mlp_norm, ctx=ctx)
-        return x + ctx.shard(m, "batch", "seq", "d_model")
+        return x + m
 
     def attend(self, x: torch.Tensor, window: int, positions: torch.Tensor,
                ctx: ModelContext) -> torch.Tensor:
@@ -178,10 +181,12 @@ class Block(nn.Module):
         a = L.attention(q, k, v, positions, positions, causal=True,
                         window=window, logit_cap=cfg.attn_logit_softcap,
                         ctx=ctx)
-        a = a.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo.to(x.dtype)
+        a = matmul(a.reshape(B, S, cfg.n_heads * cfg.hd),
+                   self.wo.to(x.dtype))
+        a = ctx.shard(a, "batch", "seq", "d_model")
         if cfg.post_norms:
             a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
-        return x + ctx.shard(a, "batch", "seq", "d_model")
+        return x + a
 
     def forward(self, x: torch.Tensor, window: int, positions: torch.Tensor,
                 ctx: ModelContext, unit_end: bool = False) -> torch.Tensor:
@@ -205,9 +210,10 @@ class Block(nn.Module):
         v_l = ctx.shard(v_l, "batch", "kv_seq", "kv_heads", "head_dim")
         a = L.decode_attention(q[:, 0], k_l, v_l, pos, window=window,
                                logit_cap=cfg.attn_logit_softcap, ctx=ctx)
-        a = a.reshape(B, cfg.n_heads * cfg.hd) @ self.wo.to(x.dtype)
+        a = matmul(a.reshape(B, cfg.n_heads * cfg.hd), self.wo.to(x.dtype))
         if cfg.post_norms:
-            a = L.rmsnorm(a, self.post_attn_norm, ctx=ctx)
+            a = L.rmsnorm(ctx.shard(a, "batch", "d_model"),
+                          self.post_attn_norm, ctx=ctx)
         return x + a[:, None]
 
     def decode(self, x: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,

@@ -57,7 +57,8 @@ from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dtensor import is_dtensor, keep_shards, on_mesh
+from repro_torch.dtensor import (
+    cumsum, is_dtensor, keep_shards, matmul, on_mesh, splittable)
 from repro_torch.models import layers as L
 from repro_torch.models.remat import checkpointed
 from repro_torch.models.sharding import ModelContext, mesh_scope, placements
@@ -120,7 +121,7 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, chunk: int = MLSTM_CHUNK,
 
     qc, kc, vc = heads(q) * hd ** -0.5, heads(k), heads(v)
     lfc, igc = heads(lf), heads(ig)                     # (B,nc,nh,Q)
-    cum = lfc.cumsum(-1)
+    cum = cumsum(lfc, -1)
     total = cum[..., -1]                                # (B,nc,nh)
 
     # intra-chunk (mask the exponent BEFORE exp: masked entries would
@@ -210,7 +211,7 @@ def _mlstm_rank_summary(k, v, i_gate, f_gate, chunk: int) -> tuple:
         return t.float().reshape(B, nc, Q, nh, *t.shape[3:]).transpose(2, 3)
 
     kc, vc, lfc, igc = heads(k), heads(v), heads(lf), heads(ig)
-    cum = lfc.cumsum(-1)
+    cum = cumsum(lfc, -1)
     total = cum[..., -1]                                # (B,nc,nh)
     kw = kc * torch.exp(total[..., None] - cum + igc)[..., None]
     states = kw.transpose(-1, -2) @ vc                  # (B,nc,nh,hd,hd)
@@ -465,15 +466,16 @@ class XLSTMBlock(nn.Module):
             up_x, up_z = self.up_proj[:, :d_in], self.up_proj[:, d_in:]
             w_qkv = (up_x.float() @ self.qkv.float()).to(h.dtype)
             w_gates = (up_x.float() @ self.gates.float()).to(h.dtype)
-            z = h @ up_z.to(h.dtype)
+            z = matmul(h, up_z.to(h.dtype))
             xin = h
         else:
-            xin, z = (h @ self.up_proj.to(h.dtype)).chunk(2, dim=-1)
+            xin, z = matmul(h, self.up_proj.to(h.dtype)).chunk(2, dim=-1)
             w_qkv, w_gates = self.qkv.to(xin.dtype), self.gates.to(xin.dtype)
         if self.is_slstm:
             # the qkv projection (3 d_in) and o_proj (d_in) give the four
             # gates' pre-activations
-            zifo = torch.cat([xin @ w_qkv, xin @ self.o_proj.to(xin.dtype)],
+            zifo = torch.cat([matmul(xin, w_qkv),
+                              matmul(xin, self.o_proj.to(xin.dtype))],
                              dim=-1).reshape(B, S, 4, d_in)
             if state is None:
                 if ring:
@@ -490,13 +492,14 @@ class XLSTMBlock(nn.Module):
         else:
             nh = self.n_heads
             hd = d_in // nh
-            q, k, v = (xin @ w_qkv).reshape(B, S, 3, nh, hd).unbind(2)
+            q, k, v = splittable(matmul(xin, w_qkv), -1, 3).reshape(
+                B, S, 3, nh, hd).unbind(2)
             if rules.get("xlstm_hd"):
                 # head-dim TP: q, k, v sharded on hd over ``model``
                 q = ctx.shard(q, "batch", "seq", "ssm_heads", "xlstm_hd")
                 k = ctx.shard(k, "batch", "seq", "ssm_heads", "xlstm_hd")
                 v = ctx.shard(v, "batch", "seq", "ssm_heads", "xlstm_hd")
-            gates = (xin @ w_gates).float() + self.gate_bias
+            gates = matmul(xin, w_gates).float() + self.gate_bias
             ig, fg = gates.chunk(2, dim=-1)
             if ring and ctx.mesh is not None:
                 n_model = ctx.mesh["model"].size()
@@ -512,7 +515,7 @@ class XLSTMBlock(nn.Module):
                 hseq = h1[:, None]
             inner = hseq.reshape(B, S, d_in).to(x.dtype)
         inner = L.rmsnorm(inner, self.out_norm, ctx=ctx) * F.silu(z)
-        return x + inner @ self.down_proj.to(inner.dtype)
+        return x + matmul(inner, self.down_proj.to(inner.dtype))
 
 
 def init_xlstm_state(batch: int, d_model: int, n_heads: int,

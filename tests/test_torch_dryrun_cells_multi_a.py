@@ -1,0 +1,17 @@
+"""Every ``shapes_for`` cell of musicgen-large, granite-8b and granite-34b
+under ``run_cell`` on the fake 512-rank ``multi`` world at one scan unit
+(``_dryrun_cells.check_arch``: each record OK, no process group left
+open, its costs, memory and roofline held)."""
+
+import pytest
+
+from _dryrun_cells import check_arch
+
+
+@pytest.mark.parametrize(
+    "arch",
+    ('musicgen-large',
+     'granite-8b',
+     'granite-34b'))
+def test_every_cell_on_the_two_pod_world(arch):
+    check_arch(arch, "multi")
