@@ -3,7 +3,8 @@
 weights from a seed, its serving prefill batch counted on the card and
 on the meta device and timed under ``attention_impl="auto"``
 (``chip_smoke.dryrun_count``), then the dry run's CLI on
-``chip_smoke.DRYRUN_CELLS`` in child processes (``chip_smoke.dryrun_cli``).
+``chip_smoke.DRYRUN_CELLS`` in child processes
+(``chip_smoke.dryrun_children``).
 Prints the ``dryrun card:`` row, the ``dryrun cell:`` lines and the
 seconds of each part.
 
@@ -56,9 +57,9 @@ print("launches by path:", json.dumps({"dryrun": counts}), flush=True)
 done("granite dryrun count")
 del model, tokens
 torch.cuda.empty_cache()
+with cs.dryrun_children(done):
+    pass
 out = Path("build") / "dryrun"
-cs.dryrun_cli(out)
-done("dryrun cells")
 
 
 def _sweep(arch: str) -> str:

@@ -104,9 +104,10 @@ tensor-core kernel):
   heap runs of the same specs, by ``tests/test_chaos.py``'s checks; (c)
   the flow parity cell's three card lanes against a solo heap run of
   each seed, within the ``stacked_overflow`` bands with both counters
-  non-zero; (d) ``examples/quickstart.py`` through the port, its
+  non-zero; (d) ``examples_torch/quickstart.py``'s functions, its
   deployment lines and its work-sharing table on both engines equal to
-  the reference's.  No part launches a kernel;
+  the lines the reference's ``examples/quickstart.py`` prints.  No part
+  launches a kernel;
 * serving granite-8b at full width and depth (36 layers, random bf16
   weights from a seed), with ``attention_impl="pallas"``: the prefill
   step on 4 requests x 4096 prompt tokens (flash attention once per
@@ -239,11 +240,31 @@ tensor-core kernel):
   the mesh; and, after granite-8b's train run, one train step of that
   run's model, state and batch in the ZeRO layout, its loss against the
   same step's off the mesh (``mesh_moe``, ``mesh_train``);
+* the examples path — the port's examples (``examples_torch``), each
+  through its ``main`` as a user runs it, one line each with its wall,
+  the comparison and edge-to-HPC each in a child process started before
+  the heap parity phase and collected after the cross-checks (all
+  host-bound, the card idle most of the time), steering then in this
+  process:
+  ``cross_facility_comparison.py`` at its defaults (Fig 4, 6 and 7a in
+  miniature, 18 solo cohort runs), its 28 lines equal to the reference
+  script's (``COMPARISON_LINES``); ``edge_to_hpc_training.py`` at its
+  defaults (the ~100M-parameter ``edge-100m`` trained 200 steps on the
+  streamed data plane with a consumer crash at step 66, feedback every
+  10 steps, checkpoints every 50) in a fresh checkpoint directory: every
+  loss finite, the first near ln V and the final below it, the
+  ``[fault]`` line, the crash's messages redelivered and seen, the
+  checkpoints at 50, 100, 150 and 200 with the last three kept, its
+  steps/s and peak memory; ``steering_serve.py``: 4 streamed requests
+  served by granite-8b's smoke model, 8 new tokens each, both producers
+  steered, their threads ended; no kernel launched;
 * the dryrun path — the dry run (``repro_torch.launch.dryrun``), which
   runs a cell's step on the meta device over a fake world of 256 or 512
   ranks and counts rank 0's local ops: (a) its CLI in child processes
   (the fake world cannot share a process with an NCCL one), one a group
-  of ``DRYRUN_CELLS``, all started together, each record's roofline,
+  of ``DRYRUN_CELLS``, all started together before musicgen-large's train
+  run and collected after it (``DRYRUN_BESIDE``; they use no card), each
+  child's wall held to ``DRYRUN_TIMEOUT``, each record's roofline,
   memory and timings printed on a ``dryrun cell:`` line, any failed cell
   failing the smoke; (b) on the card, granite-8b's serving prefill (4 x
   4096 under ``attention_impl="auto"``, the plain attention, so that the
@@ -251,7 +272,7 @@ tensor-core kernel):
   CUDA tensors, its FLOPs equal to the same count on the meta device,
   the H100 roofline's bound printed beside the measured wall of the same
   step, which may not lie below it; no model kernel or pump launched
-  (``dryrun_cli``, ``dryrun_count``).
+  (``dryrun_children``, ``dryrun_count``).
 
 The line before the last holds the kernels' numbers as JSON, and the
 last line the device.  Any failure exits nonzero; without CUDA it exits
@@ -423,11 +444,11 @@ HEAP_NC = 8
 #: chaos scenario -> its parity band's scope (``tests/test_chaos.py``)
 CHAOS_SCOPE = {"tunnel": "link", "broker": "broker",
                "consumer": "consumer", "autoscale": "autoscale"}
-#: the heap parity phase (d): ``examples/quickstart.py`` through the port
-#: (its work-sharing table: dstream, 8 x 8, 2048 messages, seed 0), and
-#: the lines the reference package prints for it on each engine
-#: (``PYTHONPATH=src python examples/quickstart.py [--engine heap]``)
-QUICKSTART_ARCHS = ("dts", "prs-haproxy", "prs-stunnel", "mss")
+#: the heap parity phase (d): ``examples_torch/quickstart.py`` (its
+#: work-sharing table: dstream, 8 x 8, 2048 messages, seed 0), and the
+#: lines the reference package prints for ``examples/quickstart.py`` on
+#: each engine (``PYTHONPATH=src python examples/quickstart.py [--engine
+#: heap]``)
 QUICKSTART_DEPLOY = (
     "DTS : requires firewall/iptables rules, NodePort + DNS admin; viable "
     "only within unified administrative domains",
@@ -451,6 +472,54 @@ QUICKSTART_TABLE = {
              "  prs-stunnel    5.85x",
              "  mss            2.50x"),
 }
+
+#: the examples path: the lines the reference package prints for
+#: ``examples/cross_facility_comparison.py`` at its defaults (the
+#: vectorized engine; ``PYTHONPATH=src python
+#: examples/cross_facility_comparison.py``), which
+#: ``examples_torch/cross_facility_comparison.py`` prints on the card
+COMPARISON_LINES = (
+    "== Fig4 (mini): work-sharing throughput, dstream [vectorized] ==",
+    "  dts           c=  1      6071 msgs/s",
+    "  dts           c=  8     35691 msgs/s",
+    "  dts           c= 32     37489 msgs/s",
+    "  prs-haproxy   c=  1      6186 msgs/s",
+    "  prs-haproxy   c=  8     18775 msgs/s",
+    "  prs-haproxy   c= 32     16788 msgs/s",
+    "  mss           c=  1      4660 msgs/s",
+    "  mss           c=  8     14144 msgs/s",
+    "  mss           c= 32     14172 msgs/s",
+    "== Fig6 (mini): feedback median RTT, dstream [vectorized] ==",
+    "  dts           c=  1        39 ms",
+    "  dts           c=  8        67 ms",
+    "  prs-haproxy   c=  1        37 ms",
+    "  prs-haproxy   c=  8       131 ms",
+    "  mss           c=  1       123 ms",
+    "  mss           c=  8       177 ms",
+    "== Fig7a (mini): broadcast throughput, generic [vectorized] ==",
+    "  dts           c=  8       145 msgs/s",
+    "  prs-haproxy   c=  8       148 msgs/s",
+    "  mss           c=  8       114 msgs/s",
+    "== overhead vs DTS (work sharing) ==",
+    "  mss           c=  1  1.30x",
+    "  mss           c=  8  2.52x",
+    "  mss           c= 32  2.65x",
+    "  prs-haproxy   c=  1  0.98x",
+    "  prs-haproxy   c=  8  1.90x",
+    "  prs-haproxy   c= 32  2.23x",
+)
+#: the examples path's edge-to-HPC run: ``examples_torch/
+#: edge_to_hpc_training.py`` at its defaults (``--steps 200``), whose
+#: checkpoints land at these steps, the last ``EDGE_KEEP`` kept
+EDGE_STEPS = 200
+EDGE_CKPT_STEPS = (50, 100, 150, 200)
+EDGE_KEEP = 3
+#: seconds the examples path waits for each example's child process
+EXAMPLES_TIMEOUT = 600
+#: the steering example's requests, prompt tokens and new tokens a request
+STEER_REQUESTS = 4
+STEER_PROMPT = 8
+STEER_NEW = 8
 
 #: flash-attention checks on the card: (case, dtype, B, S, T, H, KV, hd,
 #: causal, window, logit cap), each timed.  The first is granite-8b's
@@ -638,8 +707,15 @@ DRYRUN_CELLS = (
     ("granite-8b", "train_4k", "single", "n_layers=4"),
     ("xlstm-1.3b", "prefill_32k", "single", "n_layers=7"),
 )
-#: seconds a dry-run child may take
+#: seconds a dry-run child may take, from its start to its records, and
+#: the smoke waits for it once collecting
 DRYRUN_TIMEOUT = 90
+#: the train run beside which the dry run's children run (they use no
+#: card): musicgen-large's, whose step keeps the card busy (idle 0.033 of
+#: a profiled step on an H100 at 700 W) and whose steps are not profiled;
+#: granite-8b's step (the stream phase's yardstick) and the host-bound
+#: xLSTM's run alone
+DRYRUN_BESIDE = "musicgen-large"
 #: the served model whose prefill the dry run's count is checked on, and
 #: its timed runs (three runs read 2.5789–2.5799 s on an H100)
 DRYRUN_SERVE = "granite-8b"
@@ -3133,57 +3209,24 @@ def heap_flow(dev, results: list, card_wall: float) -> dict:
     return _part_row(heap, wall, card_wall, cells)
 
 
-def quickstart_deploy() -> list:
-    """The deployment lines of ``examples/quickstart.py``, through the
-    port."""
-    from repro_torch import (
-        ResourceSettings, S3MService, establish_prs_session,
-        make_architecture)
-    dts = make_architecture("dts")
-    sess = establish_prs_session(num_conn=1, tunnel="haproxy")
-    s3m = S3MService()
-    s3m.register_project("abc123")
-    token = s3m.issue_token("abc123")
-    cluster = s3m.provision_cluster(token, settings=ResourceSettings(
-        cpus=12, ram_gbs=32, nodes=3))
-    return [f"DTS : {dts.deployment_feasibility}",
-            f"PRS : overlay {' -> '.join(sess.hops)} (uid={sess.uid})",
-            f"MSS : provisioned {cluster.amqps_url}"]
-
-
-def quickstart_table(engine: str, dev) -> tuple:
-    """The work-sharing table of ``examples/quickstart.py`` on ``engine``,
-    through the port: ``(lines, results)``."""
-    from repro_torch import overhead_table, run_pattern, summarize
-    lines, summaries, results = [], [], []
-    for arch in QUICKSTART_ARCHS:
-        r = run_pattern("work_sharing", arch, "dstream", 8,
-                        total_messages=2048, n_runs=1, engine=engine,
-                        device=dev)[0]
-        s = summarize(r)
-        results.append(r)
-        summaries.append(s)
-        lines.append(f"{arch:14s} {s.throughput_msgs_s:8.0f} msgs/s "
-                     f"({s.goodput_gbps:.2f} Gbps)" if s.feasible else
-                     f"{arch:14s} INFEASIBLE")
-    for (arch, wl, nc), ov in overhead_table(summaries).items():
-        lines.append(f"  {arch:14s} {ov:.2f}x")
-    return lines, results
-
-
 def heap_quickstart(dev) -> dict:
-    """(d) ``examples/quickstart.py`` through the port: its deployment
-    lines, and its work-sharing table on the card's cohort engine and on
-    the heap engine, each equal to what the reference prints."""
-    deploy = quickstart_deploy()
+    """(d) ``examples_torch/quickstart.py``: its deployment lines, and its
+    work-sharing table on the card's cohort engine and on the heap
+    engine, each equal to what the reference's ``examples/quickstart.py``
+    prints."""
+    from examples_torch import quickstart
+
+    def table(engine: str) -> tuple:
+        lines, overhead, results = quickstart.work_sharing(engine, dev)
+        return lines + overhead, results
+
+    deploy = quickstart.deploy_lines()
     if tuple(deploy) != QUICKSTART_DEPLOY:
         raise AssertionError(f"quickstart deployment: {deploy}")
-    (card, _), card_wall, counts = _counted(
-        lambda: quickstart_table("vectorized", dev))
-    if counts["runs"] != len(QUICKSTART_ARCHS) or counts["pump_assign"]:
+    (card, _), card_wall, counts = _counted(lambda: table("vectorized"))
+    if counts["runs"] != len(quickstart.ARCHS) or counts["pump_assign"]:
         raise AssertionError(f"quickstart on the card: {counts}")
-    (heap, results), wall = _heap_timed(
-        lambda: quickstart_table("heap", dev))
+    (heap, results), wall = _heap_timed(lambda: table("heap"))
     for engine, got in (("vectorized", card), ("heap", heap)):
         if tuple(got) != QUICKSTART_TABLE[engine]:
             raise AssertionError(f"quickstart on {engine}: {got}")
@@ -3736,21 +3779,25 @@ def train_guard(dev) -> dict:
     return dict(refused=refused)
 
 
-def drive_train_phase(dev, done, runs=TRAIN_RUNS, checks: bool = True
-                      ) -> tuple[dict, dict]:
+def drive_train_phase(dev, done, runs=TRAIN_RUNS, checks: bool = True,
+                      beside=None) -> tuple[dict, dict]:
     """The train phase: every kernel's launches counted from 0 before it
     and read after (all 0: training runs the plain paths, as the
     reference's does), the full-width ``runs`` (``TRAIN_RUNS``), the
     ``TRAIN_DOTS`` pair when its run is among them, and with ``checks``
     the GPU-against-CPU check, the entry point's resume and the kernels'
-    guard.  Returns the launches and the full-width runs' rows by arch."""
+    guard.  With ``beside`` = ``(arch, context)``, ``arch``'s run (not
+    its ``"dots"`` pair) runs inside ``context()``.  Returns the launches
+    and the full-width runs' rows by arch."""
     _reset_launches()
     rows = {}
     for arch, cut, steps, M in runs:
-        rows[arch] = drive_train(arch, cut, steps, M, dev,
-                                 profiled=arch in TRAIN_PROFILED,
-                                 mesh=arch == MESH_TRAIN)
-        done(f"train {arch}")
+        with (beside[1]() if beside and beside[0] == arch
+              else contextlib.nullcontext()):
+            rows[arch] = drive_train(arch, cut, steps, M, dev,
+                                     profiled=arch in TRAIN_PROFILED,
+                                     mesh=arch == MESH_TRAIN)
+            done(f"train {arch}")
         if arch == TRAIN_DOTS:
             train_dots(rows[arch], cut, M, dev)
             done(f"train {arch} dots")
@@ -3965,6 +4012,235 @@ def drive_stream_phase(dev, done, local_wall=None) -> dict:
     counts = _launches()
     if any(counts.values()):
         raise AssertionError(f"stream: kernel launches {counts}, want none")
+    return counts
+
+
+def _example(main, dev, *argv: str) -> tuple:
+    """An example's ``main`` on ``dev`` with its standard output captured,
+    then printed: ``(its result, the lines it printed, wall seconds)``."""
+    import io
+    import torch
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        out = main([*argv, "--device", str(dev)])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(text.getvalue(), end="", flush=True)
+    return out, text.getvalue().splitlines(), wall
+
+
+def example_comparison(dev) -> dict:
+    """``examples_torch/cross_facility_comparison.py`` at its defaults:
+    its lines equal to the reference's (``COMPARISON_LINES``), every cell
+    a solo run of the card's cohort engine."""
+    from examples_torch import cross_facility_comparison as comparison
+    from repro_torch.core.torch_engine import TorchStreamSim
+    TorchStreamSim.stats.update(runs=0, host_reads=0, withheld=0)
+    lines, printed, wall = _example(comparison.main, dev)
+    runs = dict(TorchStreamSim.stats)
+    # Fig 4 at three consumer counts, Fig 6 at two, Fig 7a at one
+    want_runs = len(comparison.ARCHS) * (3 + 2 + 1)
+    if tuple(lines) != COMPARISON_LINES or printed != lines:
+        raise AssertionError(f"comparison: {printed}, want "
+                             f"{list(COMPARISON_LINES)}")
+    if runs["runs"] != want_runs:
+        raise AssertionError(f"comparison: {runs['runs']} cohort runs, want "
+                             f"{want_runs}")
+    return dict(wall_s=wall, lines=len(lines), equal_to_reference=True,
+                cohort_runs=runs["runs"], host_reads=runs["host_reads"])
+
+
+def example_edge(dev) -> dict:
+    """``examples_torch/edge_to_hpc_training.py`` at its defaults in a
+    fresh checkpoint directory (under ``build/``, removed after, timed):
+    every loss finite, the first in [ln V - 0.5, ln V + 2] and the final
+    below it (the example's own check), the ``[fault]`` line printed and
+    the crash's messages redelivered and seen, a checkpoint written at
+    each of ``EDGE_CKPT_STEPS`` (each save recorded) and the last
+    ``EDGE_KEEP`` kept; the run's own steps/s and the peak memory
+    printed, with the seconds before the example starts (``setup_s``:
+    imports, the directory) and after it returns (``after_s``)."""
+    t_in = time.perf_counter()
+    import math
+    import re
+    import shutil
+    import tempfile
+    import torch
+    from examples_torch import edge_to_hpc_training as edge
+    from repro_torch.checkpoint import checkpointer
+    saved, save = [], checkpointer.save_checkpoint
+
+    def recorded(directory, step, tree, keep=3):
+        saved.append((step, keep))
+        return save(directory, step, tree, keep)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ckpt = tempfile.mkdtemp(prefix="edge2hpc_", dir=ROOT / "build")
+    checkpointer.save_checkpoint = recorded
+    try:
+        setup = time.perf_counter() - t_in
+        out, printed, wall = _example(
+            edge.main, dev, "--steps", str(EDGE_STEPS), "--ckpt-dir", ckpt)
+        t_out = time.perf_counter()
+        kept = sorted(os.listdir(ckpt))
+    finally:
+        checkpointer.save_checkpoint = save
+        t0 = time.perf_counter()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        cleanup = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    losses, loader = out["losses"], out["stream"][1]
+    n_params = sum(p.numel() for p in out["model"].parameters())
+    rates = re.findall(r"\(([0-9.]+) steps/s\)", "\n".join(printed))
+    crash = EDGE_STEPS // 3
+    row = dict(wall_s=wall, steps=len(losses), steps_per_s=float(rates[-1]),
+               first_loss=losses[0], final_loss=out["final_loss"],
+               params=n_params, crash_at=crash,
+               redelivered=out["redelivered"],
+               redeliveries_seen=loader.redeliveries_seen,
+               messages_consumed=loader.messages_consumed,
+               checkpoints_saved=[s for s, _ in saved], checkpoints_kept=kept,
+               checkpoints_removed_s=cleanup,
+               peak_mem_gb=peak if cuda else "not measured", setup_s=setup)
+    what = "edge-to-HPC"
+    if len(losses) != EDGE_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: {len(losses)} losses, or one not "
+                             f"finite: {losses}")
+    _in_band(losses[:1], edge.CONFIG.vocab_size, what)
+    # the config's count leaves out the final norm, as the reference's
+    if n_params != edge.CONFIG.param_count() + edge.CONFIG.d_model:
+        raise AssertionError(f"{what}: {n_params} parameters, the config "
+                             f"counts {edge.CONFIG.param_count()} and a "
+                             f"final norm of {edge.CONFIG.d_model}")
+    if f"[fault] crashed ingest-0 at step {crash};" not in "\n".join(printed):
+        raise AssertionError(f"{what}: no [fault] line")
+    if not out["redelivered"]:
+        raise AssertionError(f"{what}: the crash redelivered nothing")
+    _hold_redelivery(out["redelivered"], loader, what)
+    if saved != [(s, EDGE_KEEP) for s in EDGE_CKPT_STEPS] or kept != [
+            f"step_{s:010d}" for s in EDGE_CKPT_STEPS[-EDGE_KEEP:]]:
+        raise AssertionError(f"{what}: checkpoints saved {saved}, kept "
+                             f"{kept}")
+    if out["summary"] not in printed:
+        raise AssertionError(f"{what}: no summary line")
+    del out, loader
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    row["after_s"] = time.perf_counter() - t_out
+    return row
+
+
+def example_steering(dev) -> dict:
+    """``examples_torch/steering_serve.py``: ``STEER_REQUESTS`` requests
+    served on the card, each ``STEER_NEW`` new tokens after its
+    ``STEER_PROMPT``-token prompt; both producers steered; each producer's
+    thread ended (joined with a 2 s timeout after the example returns)."""
+    from examples_torch import steering_serve as steering
+    out, printed, wall = _example(steering.main, dev)
+    what = "steering"
+    producers = out["producers"]
+    for p in producers:
+        p.join(timeout=2.0)
+    alive = [p.id for p in producers if p._thread.is_alive()]
+    shapes = [tuple(t.shape) for t in out["tokens"]]
+    if alive:
+        raise AssertionError(f"{what}: producer threads run on: {alive}")
+    if shapes != [(1, STEER_PROMPT + STEER_NEW)] * STEER_REQUESTS or any(
+            t.device.type != dev.type for t in out["tokens"]):
+        raise AssertionError(f"{what}: generated {shapes}")
+    if len(out["steering"]) != len(producers) or None in out["steering"]:
+        raise AssertionError(f"{what}: steering received {out['steering']}")
+    if printed[-1] != f"served {STEER_REQUESTS} streamed requests":
+        raise AssertionError(f"{what}: {printed}")
+    return dict(wall_s=wall, requests=len(shapes), tokens=shapes,
+                steering=out["steering"],
+                producers=[dict(id=p.id, sent=p.sent,
+                                feedback_seen=p.feedback_seen)
+                           for p in producers])
+
+
+#: the examples that run in child processes of the smoke, by name
+EXAMPLE_CHILDREN = {"comparison": "example_comparison",
+                    "edge-to-HPC": "example_edge"}
+
+
+def example_child(name: str, device: str) -> None:
+    """One of ``EXAMPLE_CHILDREN`` in a child process of the smoke
+    (``start_examples``) on ``device``, every kernel's launches counted
+    from 0 before it: what it prints, then its row and the launches as
+    JSON on the last line."""
+    import torch
+    _reset_launches()
+    row = globals()[EXAMPLE_CHILDREN[name]](torch.device(device))
+    print(json.dumps(dict(row=row, launches=_launches())), flush=True)
+
+
+def start_examples(dev) -> list:
+    """Start each of ``EXAMPLE_CHILDREN`` on ``dev`` in a child process
+    of its own, all together, each printing to a log under ``build/``:
+    ``[(name, process, log path)]``.  Every example is host-bound and
+    leaves the card idle most of the time, and the host has cores to
+    spare, so the smoke goes on with phases of the same kind meanwhile
+    and collects them with ``drive_examples``."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    children = []
+    for name in EXAMPLE_CHILDREN:
+        log = ROOT / "build" / f"example_{name}.log"
+        with open(log, "w") as out:
+            children.append((name, subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as cs; "
+                 f"cs.example_child({name!r}, {str(dev)!r})"],
+                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT), log))
+    return children
+
+
+def _finish_example(name: str, proc, log: Path) -> dict:
+    """Wait for an example's child (``EXAMPLES_TIMEOUT`` s at most), print
+    what it printed and its ``examples <name>:`` row; raises when it
+    failed.  Returns its launches."""
+    rc = _wait(proc, EXAMPLES_TIMEOUT)
+    text = log.read_text()
+    last = [ln for ln in text.splitlines() if ln.startswith('{"row": ')]
+    if rc != 0 or not last:
+        raise AssertionError(f"examples {name}: exit {rc}\n{text[-3000:]}")
+    out = json.loads(last[-1])
+    print(text.replace(last[-1] + "\n", ""), end="")
+    print(f"examples {name}:", json.dumps(out["row"]), flush=True)
+    return out["launches"]
+
+
+def drive_examples(dev, done, children=None) -> dict:
+    """The examples path: the three examples of ``examples_torch`` that
+    heap parity (d) does not run, one line each with its wall.  The
+    comparison and edge-to-HPC run in child processes (``children``, from
+    ``start_examples``; started here when not given), collected here;
+    then the steering example runs in this process.  Every kernel's
+    launches are counted from 0 in each process and summed (all 0: the
+    comparison runs the cohort engine, training the plain paths, and the
+    steering server its default ``ModelContext()``)."""
+    if children is None:
+        children = start_examples(dev)
+    counts = dict.fromkeys(_launches(), 0)
+    with _stopped(proc for _, proc, _ in children):
+        for name, proc, log in children:
+            for k, n in _finish_example(name, proc, log).items():
+                counts[k] += n
+            done(f"examples {name} (its wait)")
+    _reset_launches()
+    print("examples steering:", json.dumps(example_steering(dev)),
+          flush=True)
+    done("examples steering")
+    here = _launches()
+    counts = {k: n + here[k] for k, n in counts.items()}
+    if any(counts.values()):
+        raise AssertionError(f"examples: kernel launches {counts}, want "
+                             f"none")
     return counts
 
 
@@ -4356,12 +4632,11 @@ def mesh_train(model, snap: dict, ref: dict, batch, steps: int, M: int
     return row
 
 
-def dryrun_cli(out_dir: Path) -> list:
+def start_dryrun(out_dir: Path) -> list:
     """The dryrun path (a): ``python -m repro_torch.launch.dryrun`` in one
     child process a group of ``DRYRUN_CELLS``, all started together, each
-    writing its records to ``out_dir``; each cell's roofline, memory and
-    timings printed on a ``dryrun cell:`` line.  Raises on a child that
-    fails or times out and on any failed cell.  Returns the records."""
+    writing its records to ``out_dir``; collected by ``finish_dryrun``.
+    Returns ``[(records path, log, process, its start on time.time())]``."""
     out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                PYTHONPYCACHEPREFIX=str(_warm_bytecode(out_dir / "pycache")))
@@ -4374,20 +4649,31 @@ def dryrun_cli(out_dir: Path) -> list:
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shapes, "--mesh", mesh, "--set", sets,
              "--out", str(out)], cwd=ROOT, env=env, stdout=log,
-            stderr=subprocess.STDOUT)))
+            stderr=subprocess.STDOUT), time.time()))
+    return procs
+
+
+def finish_dryrun(procs: list) -> list:
+    """Collect ``start_dryrun``'s children, each waited for
+    ``DRYRUN_TIMEOUT`` s at most from here: each child's own wall (its
+    start to its records' last write) printed on a ``dryrun child:`` line
+    and held to ``DRYRUN_TIMEOUT``, each cell's roofline, memory and
+    timings on a ``dryrun cell:`` line.  Raises on a child that fails or
+    is slower than that and on any failed cell.  Returns the records."""
     records = []
-    for out, log, proc in procs:
-        try:
-            rc = proc.wait(timeout=DRYRUN_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            rc = "timeout"
+    for out, log, proc, started in procs:
+        rc = _wait(proc, DRYRUN_TIMEOUT)
         log.close()
         text = Path(log.name).read_text()
         if rc != 0 or "[FAIL]" in text or not out.exists():
             raise AssertionError(f"dry run {proc.args[3:]}: exit {rc}\n"
                                  f"{text[-3000:]}")
+        wall = out.stat().st_mtime - started
+        print("dryrun child:", json.dumps(dict(args=proc.args[3:],
+                                               wall_s=wall)))
+        if wall > DRYRUN_TIMEOUT:
+            raise AssertionError(f"dry run {proc.args[3:]}: {wall} s, more "
+                                 f"than {DRYRUN_TIMEOUT}")
         for key, rec in json.load(open(out)).items():
             if not rec.get("ok"):
                 raise AssertionError(f"dry run {key}: {rec.get('error')}")
@@ -4401,6 +4687,19 @@ def dryrun_cli(out_dir: Path) -> list:
                                      rec["collectives"].items()},
                 "probe_fit": rec.get("probe", {}).get("fit")}))
     return records
+
+
+@contextlib.contextmanager
+def dryrun_children(done):
+    """The dryrun path (a) around a block: its children started before it
+    (``start_dryrun``, under ``build/dryrun``) and collected after it
+    (``finish_dryrun``), every child stopped if either fails."""
+    procs = start_dryrun(ROOT / "build" / "dryrun")
+    done("dryrun start")
+    with _stopped(proc for _, _, proc, _ in procs):
+        yield
+        finish_dryrun(procs)
+    done("dryrun cells (their wait)")
 
 
 def _warm_bytecode(prefix: Path) -> Path:
@@ -4567,6 +4866,31 @@ def serve_families(dev, done) -> dict:
     return by_path
 
 
+def _wait(proc, timeout: float):
+    """Wait ``timeout`` s for a child process: its exit code, or
+    ``"timeout"`` after killing it."""
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return "timeout"
+
+
+@contextlib.contextmanager
+def _stopped(procs):
+    """Kill and reap every process of ``procs`` still running when the
+    block ends, however it ends."""
+    procs = list(procs)
+    try:
+        yield procs
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4632,16 +4956,22 @@ def main() -> int:
     avail, by_path["availability"] = drive_availability(dev)
     print("availability:", json.dumps(avail))
     done("availability")
-    for part, row in drive_heap_parity(
-            dev, chaos_rows, chaos_results, phase["wall_s"],
-            flow_results["parity"], flow_rows[0]["wall_s"]).items():
-        print(f"heap parity {part}:", json.dumps(row))
-    done("heap parity")
-    print("cross-check:", json.dumps(cross_check(dev)))
-    print("cohort cross-check:", json.dumps(cohort_cross_check(dev)))
-    print("flow cross-check:", json.dumps(flow_cross_check(dev)))
-    print("chaos cross-check:", json.dumps(chaos_cross_check(dev)))
-    done("cross-checks")
+    # the comparison and edge-to-HPC examples in child processes beside
+    # the heap parity and cross-check phases: all host-bound, the card
+    # idle most of the time
+    examples = start_examples(dev)
+    with _stopped(proc for _, proc, _ in examples):
+        for part, row in drive_heap_parity(
+                dev, chaos_rows, chaos_results, phase["wall_s"],
+                flow_results["parity"], flow_rows[0]["wall_s"]).items():
+            print(f"heap parity {part}:", json.dumps(row))
+        done("heap parity")
+        print("cross-check:", json.dumps(cross_check(dev)))
+        print("cohort cross-check:", json.dumps(cohort_cross_check(dev)))
+        print("flow cross-check:", json.dumps(flow_cross_check(dev)))
+        print("chaos cross-check:", json.dumps(chaos_cross_check(dev)))
+        done("cross-checks")
+        by_path["examples"] = drive_examples(dev, done, examples)
     print("profile:", json.dumps(profile_cell(dev)))
     print("cohort profile:", json.dumps(profile_cohort(dev)))
     done("profiles")
@@ -4650,11 +4980,10 @@ def main() -> int:
     by_path.update(serve_families(dev, done))
     by_path.update(serve("xlstm-1.3b", dev, done, walk_xlstm,
                          walk_decode_xlstm))
-    by_path["train"], train_rows = drive_train_phase(dev, done)
+    by_path["train"], train_rows = drive_train_phase(
+        dev, done, beside=(DRYRUN_BESIDE, lambda: dryrun_children(done)))
     by_path["stream"] = drive_stream_phase(
         dev, done, train_rows["granite-8b"]["step_wall_s"])
-    dryrun_cli(ROOT / "build" / "dryrun")
-    done("dryrun cells")
     mesh = by_path["mesh"]
     if not all(mesh[k] for k in ("flash_attention", "rmsnorm",
                                  "flash_decode")):

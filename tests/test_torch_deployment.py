@@ -324,10 +324,11 @@ def test_quickstart_deployment_through_the_port():
 
 def test_chip_smoke_quickstart_is_the_reference_quickstart(monkeypatch,
                                                            capsys):
-    """The chip smoke holds ``examples/quickstart.py`` through the port to
-    the lines the reference prints: those lines are the reference's (its
-    quickstart, run here on each engine), and the port prints them on the
-    heap engine.  Module counters start fresh, as in a new process."""
+    """The chip smoke holds ``examples_torch/quickstart.py`` to the lines
+    the reference prints: those lines are the reference's (its
+    quickstart, run here on each engine), and the port's example makes
+    them on the heap engine.  Module counters start fresh, as in a new
+    process."""
     import itertools
     import runpy
     import sys
@@ -354,8 +355,8 @@ def test_chip_smoke_quickstart_is_the_reference_quickstart(monkeypatch,
         table = [ln for ln in lines[6:] if ln.strip() and not ln.startswith(
             "overhead")]
         assert tuple(table) == chip_smoke.QUICKSTART_TABLE[engine]
-    assert tuple(chip_smoke.quickstart_deploy()) == \
-        chip_smoke.QUICKSTART_DEPLOY
-    lines, results = chip_smoke.quickstart_table("heap", "cpu")
-    assert tuple(lines) == chip_smoke.QUICKSTART_TABLE["heap"]
+    from examples_torch import quickstart
+    assert tuple(quickstart.deploy_lines()) == chip_smoke.QUICKSTART_DEPLOY
+    table, overhead, results = quickstart.work_sharing("heap", "cpu")
+    assert tuple(table + overhead) == chip_smoke.QUICKSTART_TABLE["heap"]
     assert {r.spec.params.engine for r in results} == {"heap"}
